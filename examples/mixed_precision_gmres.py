@@ -1,14 +1,14 @@
 """Mixed-precision Krylov: bf16 basis storage + compensated reductions.
 
-Runs on whatever JAX backend is active (TPU if available, else CPU):
+Runs on whatever JAX backend is active (the GPU if available, else CPU):
     python examples/mixed_precision_gmres.py
 
 Demonstrates the two precision directions the framework offers on an
 f32 chip (docs/PRECISION.md):
   * NARROWER storage where precision is not the constraint — the
     Arnoldi basis is the HBM bottleneck of GMRES, so
-    ``basis_dtype=jnp.bfloat16`` halves its traffic (1.6x iters/s on a
-    v5e; the MXU reads bf16 natively with f32 accumulation). Restarts
+    ``basis_dtype=jnp.bfloat16`` halves its traffic (the projection
+    GEMMs read bf16 with f32 accumulation). Restarts
     are true-residual-gated, so the narrow-basis solver behaves as
     iterative refinement and every convergence claim stays certified.
   * WIDER arithmetic where it is — ``compensated=True`` runs the

@@ -25,9 +25,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np
 import jax
 
-if os.environ.get("TT_EXAMPLE_TPU") != "1":
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
+if jax.default_backend() == "cpu":
+    jax.config.update("jax_enable_x64", True)  # f64 tolerances on CPU
 import jax.numpy as jnp
 
 from trilinos_tpu.fem import (FieldManager, PhysicsBlock,

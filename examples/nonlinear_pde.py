@@ -12,7 +12,7 @@ packages/nox/test-loca examples). The transient form
 is marched with the adaptive implicit integrator and settles onto the
 steady branch.
 
-Run: PYTHONPATH=. python examples/nonlinear_pde.py   (CPU or TPU)
+Run: PYTHONPATH=. python examples/nonlinear_pde.py   (CPU or GPU)
 """
 import os
 import sys
@@ -45,7 +45,7 @@ mask_j = jnp.asarray(mask)
 
 def residual(u, lam):
     """F(u) = A u - h^2 lam exp(u) (zero on padding rows)."""
-    return mask_j * (S.spmv(dev, u, impl="xla")
+    return mask_j * (S.spmv(dev, u)
                      - h2 * lam * jnp.exp(u) * mask_j)
 
 
@@ -69,7 +69,7 @@ print(f"[loca] {len(lams)} continuation points, "
 
 # --- transient: ignition transient at lam = 1 --------------------------
 rhs = lambda t, u: mask_j * (1.0 * jnp.exp(u) * mask_j
-                             - S.spmv(dev, u, impl="xla") / h2)
+                             - S.spmv(dev, u) / h2)
 tr = integrate_adaptive(rhs, u0, 0.0, 1.0, 0.02, order=2, rtol=1e-5,
                         newton_atol=1e-5)
 print(f"[tempus] adaptive march: {tr.steps} steps "

@@ -1,7 +1,7 @@
 """A sequence of related systems: graph reuse + preconditioner
 recompute + Krylov recycling, together.
 
-Runs on whatever JAX backend is active (TPU if available, else CPU):
+Runs on whatever JAX backend is active (the GPU if available, else CPU):
     python examples/sequence_of_systems.py
 
 The time-dependent / nonlinear outer-loop workflow the reference serves

@@ -6,7 +6,7 @@ Problem: -(a(x, xi) u')' = 1 on (0,1), u(0)=u(1)=0, with the lognormal-
 free affine field a = a_mean + sum_k g_k(x) xi_k from a truncated KL of
 an exponential-covariance process (uniform germs keep a > 0).
 
-TPU shape of the computation: the PC coefficient field is ONE (n, P)
+Shape of the computation: the PC coefficient field is ONE (n, P)
 block; each KL mode's stiffness matrix SpMMs all P columns at once and
 the stochastic coupling is a (P,P) GEMM — the whole SG apply is a single
 fused XLA program.

@@ -118,9 +118,9 @@ def write_doc(rows):
         "it instead of stalling to maxiter (the Belos ImpResNorm",
         "loss-of-accuracy exit, BelosStatusTestImpResNorm.hpp:47-88).",
         "",
-        "Guidance: on TPU (native f32) request rtol >= 1e-5 for",
+        "Guidance: in f32 request rtol >= 1e-5 for",
         "unpreconditioned Krylov on O(1e3)-conditioned systems; tighter",
-        "targets need f64 (CPU) or preconditioning that reduces the",
+        "targets need f64 (native on the H100) or preconditioning that reduces the",
         "iteration count and with it the rounding accumulation.",
         "",
         "| problem | solver | dtype | tightest certified rtol |",

@@ -19,7 +19,7 @@ class TestAdditiveSchwarz:
         n, npad = 256, dev.n_rows_pad
         b = np.zeros(npad)
         b[:n] = np.random.default_rng(0).standard_normal(n)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         plain = gmres(op, jnp.asarray(b), restart=30, rtol=1e-9, maxiter=2000)
         m = precond.AdditiveSchwarz(
             a, {"schwarz: num subdomains": 4,
@@ -65,7 +65,7 @@ class TestTwoLevelSchwarz:
         n, npad = a.shape[0], dev.n_rows_pad
         b = np.zeros(npad)
         b[:n] = np.random.default_rng(0).standard_normal(n)
-        res = cg(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(b),
+        res = cg(lambda x: S.spmv(dev, x), jnp.asarray(b),
                  prec=prec, rtol=1e-8, maxiter=2000)
         assert res.converged
         return int(res.iters)
@@ -155,7 +155,7 @@ class TestKomplex:
         b_real = np.zeros(npad)
         br = np.asarray(komplex.complex_vec_to_real(bz))
         b_real[: 2 * n] = br
-        res = gmres(lambda x: S.spmv(dev, x, impl="xla"),
+        res = gmres(lambda x: S.spmv(dev, x),
                     jnp.asarray(b_real), restart=50, rtol=1e-11,
                     maxiter=4000)
         z = komplex.real_vec_to_complex(np.asarray(res.x), n)

@@ -30,7 +30,7 @@ def test_config1_laplace2d_100_cg():
     n = 10000
     b = np.zeros(dev.n_rows_pad)
     b[:n] = np.random.default_rng(0).standard_normal(n)
-    res = cg(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(b), rtol=1e-8)
+    res = cg(lambda x: S.spmv(dev, x), jnp.asarray(b), rtol=1e-8)
     assert bool(res.converged)
     # spot-check the true residual on a subsample (dense 10k² is heavy)
     x = np.asarray(res.x)[:n]
@@ -48,7 +48,7 @@ def test_config2_laplace3d_bsr_jacobi_gmres_spmm():
     rng = np.random.default_rng(1)
     b = np.zeros((npad, 4))
     b[:n] = rng.standard_normal((n, 4))
-    op = lambda x: S.spmv(bsr, x, impl="xla")  # BSR SpMM path
+    op = lambda x: S.spmv(bsr, x)  # BSR SpMM path
     m = precond.Relaxation(a).compute()
 
     def prec(v):
@@ -77,7 +77,7 @@ def test_config3_hb_suite_block_gmres_ilu_dgks():
     b = np.zeros((npad, 2))
     b[:n] = rng.standard_normal((n, 2))
     ilu = precond.Ilu0(a, {"fact: sweeps": 20}).compute()
-    res = block_gmres(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(b),
+    res = block_gmres(lambda x: S.spmv(dev, x), jnp.asarray(b),
                       prec=ilu, num_blocks=60, max_restarts=20, rtol=1e-8,
                       ortho="DGKS")
     assert (rel_res(b, a.to_dense(), res.x, n) <= 1e-6).all()

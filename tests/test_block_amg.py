@@ -150,8 +150,7 @@ class TestBf16Hierarchy:
     def test_bf16_levels_same_iteration_count(self):
         """A bf16-stored hierarchy (params={'dtype': bfloat16}) is a
         preconditioner — its 3e-3 storage quantization must not degrade
-        CG iteration counts (measured on chip: 6 iters either way on
-        73k-dof elasticity3d). The f32 CG operator stays exact."""
+        CG iteration counts. The f32 CG operator stays exact."""
         import jax.numpy as jnp
 
         nx = ny = 24

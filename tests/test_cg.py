@@ -25,7 +25,7 @@ def make_problem(a_csr, nrhs=0, seed=3, fmt="dia", dtype=None):
     shape = (npad,) if nrhs == 0 else (npad, nrhs)
     b = np.zeros(shape)
     b[:n] = rng.standard_normal((n,) if nrhs == 0 else (n, nrhs))
-    op = lambda x: S.spmv(dev, x, impl="xla")
+    op = lambda x: S.spmv(dev, x)
     bj = jnp.asarray(b, dtype=dtype) if dtype is not None else jnp.asarray(b)
     return op, bj, a_csr.to_dense(), n
 
@@ -109,7 +109,7 @@ def test_pipelined_cg_f32_residual_replacement():
     rng = np.random.default_rng(5)
     b = np.zeros(npad, np.float32)
     b[:n] = rng.standard_normal(n)
-    op = lambda v: S.spmv(op_st, v, impl="xla")
+    op = lambda v: S.spmv(op_st, v)
     res = cg_pipeline(op, jnp.asarray(b), rtol=1e-5, maxiter=500)
     assert bool(res.converged.all()), float(res.resnorm)
     # certified resnorm is the TRUE residual (explicit recompute)

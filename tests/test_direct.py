@@ -77,7 +77,7 @@ def test_direct_as_preconditioner(rng):
     b = np.zeros(npad)
     b[:n] = rng.standard_normal(n)
     prec = PC.create("AMESOS2", a).compute()
-    res = cg(lambda v: S.spmv(dev, v, impl="xla"), jnp.asarray(b),
+    res = cg(lambda v: S.spmv(dev, v), jnp.asarray(b),
              prec=prec.apply, rtol=1e-10, maxiter=10)
     assert bool(res.converged.all())
     assert int(res.iters) <= 2, int(res.iters)

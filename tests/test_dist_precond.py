@@ -79,7 +79,7 @@ class TestDistAmg:
         assert int(res.iters) <= 25, int(res.iters)
 
     def test_amg_matches_serial_quality(self, n_shards):
-        """Distributed AMG-CG iteration count matches the on-chip SaAmg
+        """Distributed AMG-CG iteration count matches the single-device SaAmg
         within a small margin (same hierarchy, same smoothing)."""
         from trilinos_tpu import precond as PC
         from trilinos_tpu.ops import matvec as S

@@ -30,7 +30,7 @@ class TestDistStencil:
         got = ds.row_map.from_padded(np.asarray(y))
         xp = np.zeros(op.n_rows_pad)
         xp[:n] = x
-        want = np.asarray(S.spmv(op, jnp.asarray(xp), impl="xla"))[:n]
+        want = np.asarray(S.spmv(op, jnp.asarray(xp)))[:n]
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
     def test_cg_solve(self, n_shards, rng):
@@ -60,7 +60,7 @@ class TestDistChebFused:
     exchange + one fused local polynomial per apply."""
 
     def test_matches_global_fused_apply(self, rng):
-        from trilinos_tpu.ops.pallas.stencil_poly import (
+        from trilinos_tpu.ops.stencil import (
             chebyshev_stages, stencil_poly_xla)
 
         n_shards, degree = 4, 3
@@ -142,7 +142,7 @@ class TestDistSstepGmres:
         from trilinos_tpu.solvers.sstep_gmres import sstep_gmres
 
         kw = dict(s=3, t_blocks=5, max_restarts=25, rtol=1e-5)
-        r_single = sstep_gmres(op, bj, basis_impl="loop", **kw)
+        r_single = sstep_gmres(op, bj, **kw)
         r_fused = drv.dist_sstep_gmres(op, bj, mesh=mesh,
                                        basis="fused", **kw)
         r_loop = drv.dist_sstep_gmres(op, bj, mesh=mesh, basis="loop",

@@ -58,7 +58,7 @@ class TestEigen:
             dev.n_rows_pad))
         # zero the padding so identity pad rows (eigenvalue 1) don't win
         v0 = v0.at[50:].set(0)
-        lam, v, k = power_method(lambda x: S.spmv(dev, x, impl="xla"), v0,
+        lam, v, k = power_method(lambda x: S.spmv(dev, x), v0,
                                  maxiter=2000, tol=1e-10)
         exact = np.linalg.eigvalsh(a.to_dense()).max()
         assert abs(float(lam) - exact) / exact < 1e-4
@@ -69,7 +69,7 @@ class TestEigen:
         v0 = np.zeros(dev.n_rows_pad)
         v0[:100] = np.random.default_rng(1).standard_normal(100)
         theta, vecs = lanczos_eigs(
-            lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(v0), nev=3,
+            lambda x: S.spmv(dev, x), jnp.asarray(v0), nev=3,
             m=60, which="LA")
         exact = np.sort(np.linalg.eigvalsh(a.to_dense()))[::-1][:3]
         np.testing.assert_allclose(np.sort(np.asarray(theta))[::-1], exact,
@@ -83,7 +83,7 @@ class TestEigen:
         x0 = np.zeros((npad, 3))
         x0[:64] = rng.standard_normal((64, 3))
         # Jacobi preconditioner helps: M = D^-1
-        res = lobpcg(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(x0),
+        res = lobpcg(lambda x: S.spmv(dev, x), jnp.asarray(x0),
                      tol=1e-8, maxiter=300)
         exact = np.sort(np.linalg.eigvalsh(a.to_dense()))[:3]
         got = np.sort(np.asarray(res.eigenvalues))
@@ -97,7 +97,7 @@ class TestEigen:
         npad = dev.n_rows_pad
         x0 = np.zeros((npad, 2))
         x0[:40] = np.random.default_rng(3).standard_normal((40, 2))
-        res = lobpcg(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(x0),
+        res = lobpcg(lambda x: S.spmv(dev, x), jnp.asarray(x0),
                      which="LM", tol=1e-8, maxiter=300)
         exact = np.sort(np.linalg.eigvalsh(a.to_dense()))[::-1][:2]
         got = np.sort(np.asarray(res.eigenvalues))[::-1]
@@ -135,7 +135,7 @@ class TestAmg:
         b = np.zeros(dev.n_rows_pad)
         n = 576
         b[:n] = rng.standard_normal(n)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         plain = cg(op, jnp.asarray(b), rtol=1e-8, maxiter=3000)
         amgd = cg(op, jnp.asarray(b), prec=m, rtol=1e-8, maxiter=3000)
         x = np.asarray(amgd.x)[:n]
@@ -208,14 +208,14 @@ class TestMatrixFreeFineAmg:
         rng = np.random.default_rng(7)
         b = np.zeros(op.n_rows_pad)
         b[:n] = rng.standard_normal(n)
-        amgd = cg(lambda v: S.spmv(op, v, impl="xla"), jnp.asarray(b),
+        amgd = cg(lambda v: S.spmv(op, v), jnp.asarray(b),
                   prec=m, rtol=1e-8, maxiter=300)
         assert bool(amgd.converged)
         x = np.asarray(amgd.x)[:n]
         rel = (np.linalg.norm(b[:n] - a.to_dense() @ x)
                / np.linalg.norm(b[:n]))
         assert rel <= 1.1e-8
-        plain = cg(lambda v: S.spmv(op, v, impl="xla"), jnp.asarray(b),
+        plain = cg(lambda v: S.spmv(op, v), jnp.asarray(b),
                    rtol=1e-8, maxiter=3000)
         assert int(amgd.iters) < 0.4 * int(plain.iters)
 

@@ -23,8 +23,8 @@ def make_problem(a_csr, nrhs=0, seed=7):
     shape = (npad,) if nrhs == 0 else (npad, nrhs)
     b = np.zeros(shape)
     b[:n] = rng.standard_normal((n,) if nrhs == 0 else (n, nrhs))
-    op = lambda x: S.spmv(dev, x, impl="xla")
-    op_t = lambda x: S.spmv(dev, x, transpose=True, impl="xla")
+    op = lambda x: S.spmv(dev, x)
+    op_t = lambda x: S.spmv(dev, x, transpose=True)
     return op, op_t, jnp.asarray(b), a_csr.to_dense(), n
 
 
@@ -145,7 +145,7 @@ class TestMvopTester:
 
         a = laplace2d(8, 8)
         dev = F.csr_to_dia(a)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         assert validate_operator(op, dev.n_rows_pad, symmetric=True) == []
 
     def test_nonlinear_operator_caught(self):
@@ -225,7 +225,7 @@ class TestHybridGmres:
 
 
 def test_basis_precision_parameter():
-    """TPU extension on the reference parameter surface: "Basis
+    """Extension of the reference parameter surface: "Basis
     Precision": "bf16" routes gmres/block_gmres through the narrow
     Krylov-basis storage and still certifies convergence."""
     import jax.numpy as jnp
@@ -241,7 +241,7 @@ def test_basis_precision_parameter():
     rng = np.random.default_rng(3)
     b = np.zeros(npad)
     b[:n] = rng.standard_normal(n)
-    op = lambda x: S.spmv(dev, x, impl="xla")
+    op = lambda x: S.spmv(dev, x)
     for name in ("GMRES", "Block GMRES"):
         mgr = SolverManager(name, {"Convergence Tolerance": 1e-6,
                                    "Maximum Iterations": 2000,
@@ -267,7 +267,7 @@ def test_basis_precision_rejected_for_unsupported_kinds():
     dev = F.csr_to_dia(a)
     b = np.zeros(dev.n_rows_pad)
     b[:a.shape[0]] = 1.0
-    op = lambda x: S.spmv(dev, x, impl="xla")
+    op = lambda x: S.spmv(dev, x)
     for name in ("CG", "Single Reduce GMRES", "GCRODR", "BiCGStab"):
         mgr = SolverManager(name, {"Basis Precision": "bf16"})
         with pytest.raises(ValueError, match="Basis Precision"):

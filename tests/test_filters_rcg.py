@@ -75,7 +75,7 @@ class TestRcg:
         n = 256
         b = np.zeros(dev.n_rows_pad)
         b[:n] = np.random.default_rng(seed).standard_normal(n)
-        return (lambda x: S.spmv(dev, x, impl="xla")), jnp.asarray(b), \
+        return (lambda x: S.spmv(dev, x)), jnp.asarray(b), \
             a.to_dense(), n
 
     def test_converges_faster_than_cg(self):
@@ -117,7 +117,7 @@ class TestPcpg:
         n = 256
         b = np.zeros(dev.n_rows_pad)
         b[:n] = np.random.default_rng(3).standard_normal(n)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         # constraint basis: lowest modes (the FETI coarse-space use case)
         _, u = lanczos_eigs(op, jnp.asarray(b), nev=4, m=40, which="SA")
         res = pcpg(op, jnp.asarray(b), u, rtol=1e-8, maxiter=2000)

@@ -58,7 +58,7 @@ def _check_spmv(a_csr, dev, nrhs, rtol=1e-12):
     x = np.zeros(shape)
     xin = rng.standard_normal((n,) if nrhs == 0 else (n, nrhs))
     x[:n] = xin
-    y = S.spmv(dev, x, impl="xla")
+    y = S.spmv(dev, x)
     expect = dense @ xin
     np.testing.assert_allclose(np.asarray(y)[:m], expect, rtol=rtol, atol=1e-12)
     # padding must stay zero... except identity pad rows map zero->zero anyway
@@ -71,7 +71,7 @@ def _check_spmv(a_csr, dev, nrhs, rtol=1e-12):
     xt = np.zeros(shape_t)
     xt_in = rng.standard_normal((m,) if nrhs == 0 else (m, nrhs))
     xt[:m] = xt_in
-    yt = S.spmv(dev, xt, transpose=True, impl="xla")
+    yt = S.spmv(dev, xt, transpose=True)
     expect_t = dense.T @ xt_in
     got = np.asarray(yt)[:n]
     # padded identity rows contribute x_pad (zero) — nothing
@@ -88,7 +88,7 @@ class TestEll:
         a = random_csr(rng, 16, 24, density=0.2)
         dev = F.csr_to_ell(a, identity_pad_rows=False)
         x = rng.standard_normal(24)
-        y = S.spmv(dev, np.asarray(x), impl="xla")
+        y = S.spmv(dev, np.asarray(x))
         np.testing.assert_allclose(np.asarray(y)[:16], a.to_dense() @ x,
                                    rtol=1e-12)
 
@@ -161,7 +161,7 @@ class TestBdia:
         assert dev.nbr_pad == 8
         dense = F.to_dense(dev)
         np.testing.assert_allclose(dense, a.to_dense())
-        data = np.asarray(dev.data_flat)
+        data = np.asarray(dev.data)
         d0 = dev.offsets.index(0)
         for i in range(2):
             np.testing.assert_allclose(data[d0, i, i, 5:], 1.0)
@@ -247,7 +247,7 @@ class TestResidual:
         b = np.zeros(d.n_rows_pad)
         x[:64] = rng.standard_normal(64)
         b[:64] = rng.standard_normal(64)
-        r = S.residual(d, x, b, impl="xla")
+        r = S.residual(d, x, b)
         np.testing.assert_allclose(np.asarray(r)[:64],
                                    b[:64] - a.to_dense() @ x[:64], rtol=1e-12)
 
@@ -274,7 +274,7 @@ class TestFemProblems:
         n = a.shape[0]
         b = np.zeros(dev.n_rows_pad)
         b[:n] = np.random.default_rng(0).standard_normal(n)
-        res = cg(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(b),
+        res = cg(lambda x: S.spmv(dev, x), jnp.asarray(b),
                  rtol=1e-8, maxiter=5000)
         x = np.asarray(res.x)[:n]
         rel = (np.linalg.norm(b[:n] - a.to_dense() @ x)
@@ -313,13 +313,12 @@ class TestFemProblems:
 
     def test_elasticity3d_bdia_packable_and_solvable(self):
         """Interior nodes couple to 27 neighbours -> constant-block-
-        offset (BDIA b=3) structure; CG through the plane solver op
-        reaches the tolerance."""
+        offset (BDIA b=3) structure; CG on the BDIA apply reaches the
+        tolerance."""
         import jax.numpy as jnp
 
         from trilinos_tpu.galeri import elasticity3d
         from trilinos_tpu.ops import csr_to_bdia
-        from trilinos_tpu.ops.pallas.bdia_spmv import bdia_plane_solver_op
         from trilinos_tpu.solvers import cg
 
         a = elasticity3d(8, 7, 6, e_mod=1.0, nu=0.3, dtype=np.float32)
@@ -335,11 +334,11 @@ class TestFemProblems:
         assert (np.abs(y - y_ref).max()
                 <= 1e-5 * np.abs(y_ref).max())
 
-        op, pack, unpack = bdia_plane_solver_op(bd)
         b = np.zeros(bd.n_rows_pad, np.float32)
         b[:n] = np.random.default_rng(3).standard_normal(n)
-        res = cg(op, pack(jnp.asarray(b)), rtol=1e-5, maxiter=3000)
-        xs = np.asarray(unpack(res.x))[:n]
+        res = cg(lambda v: S.spmv(bd, v), jnp.asarray(b), rtol=1e-5,
+                 maxiter=3000)
+        xs = np.asarray(res.x)[:n]
         rel = (np.linalg.norm(b[:n] - a.to_dense() @ xs)
                / np.linalg.norm(b[:n]))
         assert rel <= 2e-5, rel
@@ -378,9 +377,9 @@ class TestBf16Storage:
         d32 = F.csr_to_dia(a, dtype=np.float32)
         assert str(d16.dtype) == "bfloat16"
         x = rng.standard_normal(d32.n_rows_pad).astype(np.float32)
-        y16 = np.asarray(S.spmv(d16, jnp.asarray(x), impl="xla"),
+        y16 = np.asarray(S.spmv(d16, jnp.asarray(x)),
                          dtype=np.float32)
-        y32 = np.asarray(S.spmv(d32, jnp.asarray(x), impl="xla"))
+        y32 = np.asarray(S.spmv(d32, jnp.asarray(x)))
         rel = np.abs(y16 - y32).max() / np.abs(y32).max()
         assert rel < 2e-2
 

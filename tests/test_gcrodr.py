@@ -19,7 +19,7 @@ def make_problem(a_csr, seed=0):
     n, npad = a_csr.shape[0], dev.n_rows_pad
     b = np.zeros(npad)
     b[:n] = np.random.default_rng(seed).standard_normal(n)
-    return (lambda x: S.spmv(dev, x, impl="xla")), jnp.asarray(b), \
+    return (lambda x: S.spmv(dev, x)), jnp.asarray(b), \
         a_csr.to_dense(), n
 
 

@@ -23,7 +23,7 @@ def edge_problem(nx=10, ny=8, sigma=None, seed=0):
     n, npad = a.shape[0], dev.n_rows_pad
     b = np.zeros(npad)
     b[:n] = np.random.default_rng(seed).standard_normal(n)
-    op = lambda v: S.spmv(dev, v, impl="xla")
+    op = lambda v: S.spmv(dev, v)
     return a, g, op, jnp.asarray(b), n
 
 

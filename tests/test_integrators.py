@@ -79,7 +79,7 @@ class TestStiffHeat:
         mask[:self.n] = 1.0
         mask_j = jnp.asarray(mask)
         self.rhs = lambda t, u: -inv_h2 * mask_j * S.spmv(
-            dev, u, impl="xla")
+            dev, u)
         # smallest eigenvalue of (1/h^2) A -> slowest decay rate
         h2lam = 4 * (np.sin(np.pi / (2 * (nx + 1))) ** 2
                      + np.sin(np.pi / (2 * (ny + 1))) ** 2)

@@ -107,7 +107,7 @@ class TestHarwellBoeing:
         n, npad = a.shape[0], dev.n_rows_pad
         b = np.zeros(npad)
         b[:n] = np.random.default_rng(0).standard_normal(n)
-        res = cg(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(b),
+        res = cg(lambda x: S.spmv(dev, x), jnp.asarray(b),
                  rtol=1e-10, maxiter=3000)
         x = np.asarray(res.x)[:n]
         rel_res = np.linalg.norm(b[:n] - d @ x) / np.linalg.norm(b[:n])
@@ -132,7 +132,7 @@ class TestHbSolve:
         rng = np.random.default_rng(0)
         b = np.zeros(npad)
         b[:n] = rng.standard_normal(n)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         ilu = precond.Ilu0(a, {"fact: sweeps": 20}).compute()
         res = gmres(op, jnp.asarray(b), prec=ilu, restart=50, rtol=1e-8,
                     maxiter=2000, ortho="DGKS")
@@ -153,7 +153,7 @@ class TestHbSolve:
         n, npad = a.shape[0], dev.n_rows_pad
         b = np.zeros(npad)
         b[:n] = np.random.default_rng(1).standard_normal(n)
-        res = bicgstab(lambda x: S.spmv(dev, x, impl="xla"), jnp.asarray(b),
+        res = bicgstab(lambda x: S.spmv(dev, x), jnp.asarray(b),
                        rtol=1e-9, maxiter=2000)
         x = np.asarray(res.x)[:n]
         rel = (np.linalg.norm(b[:n] - a.to_dense() @ x)

@@ -19,7 +19,7 @@ def op_of(a):
     def op(v):
         shape = (npad,) if v.ndim == 1 else (npad, v.shape[1])
         vp = jnp.zeros(shape, v.dtype).at[:n].set(v)
-        return S.spmv(dev, vp, impl="xla")[:n]
+        return S.spmv(dev, vp)[:n]
 
     return op, n
 

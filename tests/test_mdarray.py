@@ -249,7 +249,7 @@ class TestMDPolyApply:
         """md_solve + md_poly_local: CA fused Chebyshev preconditioning
         inside the N-D-grid CG (one deep exchange per prec apply)."""
         from trilinos_tpu.galeri import laplace2d
-        from trilinos_tpu.ops.pallas.stencil_poly import chebyshev_stages
+        from trilinos_tpu.ops.stencil import chebyshev_stages
         from trilinos_tpu.parallel.mdarray import md_poly_local, md_solve
         from trilinos_tpu.solvers import cg
 

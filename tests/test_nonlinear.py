@@ -35,7 +35,7 @@ def bratu_residual(nx=24, ny=24, lam=4.0):
     mask = jnp.asarray(mask)
 
     def f(u, lam_v=lam):
-        return S.spmv(dev, u, impl="xla") - lam_v * h2 * mask * jnp.exp(u)
+        return S.spmv(dev, u) - lam_v * h2 * mask * jnp.exp(u)
 
     return f, n, npad, a.to_dense(), h2, mask
 

@@ -23,7 +23,7 @@ def make_problem(a_csr, seed=11):
     rng = np.random.default_rng(seed)
     b = np.zeros(npad)
     b[:n] = rng.standard_normal(n)
-    op = lambda x: S.spmv(dev, x, impl="xla")
+    op = lambda x: S.spmv(dev, x)
     return op, jnp.asarray(b), a_csr.to_dense(), n
 
 

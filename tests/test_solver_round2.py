@@ -23,7 +23,7 @@ def make_problem(a_csr, nrhs=0, seed=3):
     shape = (npad,) if nrhs == 0 else (npad, nrhs)
     b = np.zeros(shape)
     b[:n] = rng.standard_normal((n,) if nrhs == 0 else (n, nrhs))
-    op = lambda x: S.spmv(dev, x, impl="xla")
+    op = lambda x: S.spmv(dev, x)
     return op, jnp.asarray(b), a_csr.to_dense(), n
 
 

@@ -1,6 +1,6 @@
 """Structured-aggregation SA-AMG (StencilOp hierarchy, reshape transfers).
 
-The TPU-first fast path of precond/amg.py: aggregates are 2x2x2 grid
+The accelerator-first fast path of precond/amg.py: aggregates are 2x2x2 grid
 blocks, transfers are block-sum/broadcast + one stencil apply, coarse
 levels are StencilOps with probe-extracted interior Galerkin
 coefficients (sparsified with diagonal lumping). Reference analogue:
@@ -16,7 +16,7 @@ from trilinos_tpu import precond
 from trilinos_tpu.galeri import laplace2d, laplace3d
 from trilinos_tpu.ops import matvec as S
 from trilinos_tpu.ops.formats import DiaMatrix
-from trilinos_tpu.ops.pallas.stencil_op import StencilOp
+from trilinos_tpu.ops.stencil import StencilOp
 from trilinos_tpu.solvers import cg
 
 
@@ -64,7 +64,7 @@ class TestStructuredHierarchy:
                                    omega).to_dense()
         a1 = m.levels[1]["a"]
         n1 = a1.n_rows
-        d = np.asarray(a1.data_flat, dtype=np.float64)
+        d = np.asarray(a1.data, dtype=np.float64)
         dense = np.zeros((a1.n_rows_pad, a1.n_rows_pad))
         for k, off in enumerate(a1.offsets):
             idx = np.arange(a1.n_rows_pad)

@@ -102,7 +102,7 @@ class TestCheckpoint:
         n = 144
         b = np.zeros(dev.n_rows_pad)
         b[:n] = np.random.default_rng(0).standard_normal(n)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         path = str(tmp_path / "cg.npz")
         res = checkpointed_solve(cg, op, jnp.asarray(b), path=path,
                                  cycle_iters=20, rtol=1e-9, maxiter=2000)
@@ -137,7 +137,7 @@ class TestIlut:
         n = 196
         b = np.zeros(dev.n_rows_pad)
         b[:n] = np.random.default_rng(1).standard_normal(n)
-        op = lambda x: S.spmv(dev, x, impl="xla")
+        op = lambda x: S.spmv(dev, x)
         plain = gmres(op, jnp.asarray(b), restart=30, rtol=1e-8,
                       maxiter=2000)
         ilut = precond.create("ILUT", a, {"fact: sweeps": 10}).compute()

@@ -1,6 +1,6 @@
 """Block Davidson eigensolver (symmetric, preconditioned).
 
-TPU-native analogue of Anasazi::BlockDavidson
+JAX analogue of Anasazi::BlockDavidson
 (packages/anasazi/src/AnasaziBlockDavidsonSolMgr.hpp,
 AnasaziBlockDavidson.hpp): expand a search space with PRECONDITIONED
 residual blocks, Rayleigh-Ritz on the space, restart with the leading
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..ops.blas import HI
 from ..ops.smalldense import chol_inv_small
 from ..parallel.comm import Comm, SerialComm
 from ..solvers.base import Operator, hi_precision
@@ -94,12 +95,13 @@ def block_davidson(op: Operator, n: int, nev: int, *, nb: int | None = None,
         eps = jnp.finfo(kmat.dtype).eps
         gmat = gmat + (10 * eps) * (jnp.trace(gmat) / ka) * jnp.eye(
             ka, dtype=gmat.dtype)
-        # fused factor + explicit L⁻¹ (ops/smalldense.py): the three
-        # whitening solves become three small GEMMs
+        # explicit L⁻¹ (ops/smalldense.py): the three whitening solves
+        # become three small GEMMs, pinned like every Rayleigh-Ritz product
         linv = chol_inv_small(gmat)[1]
-        hw = linv @ kmat @ linv.T
+        hw = jnp.matmul(jnp.matmul(linv, kmat, precision=HI), linv.T,
+                        precision=HI)
         theta, zt = jnp.linalg.eigh((hw + hw.T) / 2)
-        z = linv.T @ zt
+        z = jnp.matmul(linv.T, zt, precision=HI)
         return theta, z
 
     def _wanted_cols(z, theta, ka, width):
@@ -144,7 +146,7 @@ def block_davidson(op: Operator, n: int, nev: int, *, nb: int | None = None,
                 # residuals) defeats M-CholQR — the Gram's rounding
                 # noise is the same order as the chol floor — and
                 # inserting such a column poisons the projected matrix
-                # with spurious Ritz values (observed on chip: λ 30-75×
+                # with spurious Ritz values (observed: λ 30-75×
                 # λmax). The host filters/rescales on the quality
                 # measures (_select_expansion_columns).
                 q, mq = _mortho_block(comm, mass, s, ms_, t)

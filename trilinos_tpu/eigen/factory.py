@@ -1,6 +1,6 @@
 """Eigensolver factory: string + ParameterList driven eigensolves.
 
-TPU-native analogue of ``Anasazi::Factory`` (packages/anasazi/src/
+JAX analogue of ``Anasazi::Factory`` (packages/anasazi/src/
 AnasaziFactory.hpp — creates a SolverManager from a name + ParameterList)
 and ``Anasazi::BasicEigenproblem`` (AnasaziBasicEigenproblem.hpp — holds
 the operator, preconditioner, nev, symmetry flag, and initial vector; the

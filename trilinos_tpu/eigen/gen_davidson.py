@@ -1,6 +1,6 @@
 """Generalized Davidson eigensolver (nonsymmetric, preconditioned).
 
-TPU-native analogue of Anasazi::GeneralizedDavidson
+JAX analogue of Anasazi::GeneralizedDavidson
 (packages/anasazi/src/AnasaziGeneralizedDavidsonSolMgr.hpp,
 AnasaziGeneralizedDavidson.hpp): expand a search space with
 preconditioned residual blocks, project the NONSYMMETRIC operator onto

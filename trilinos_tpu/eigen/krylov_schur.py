@@ -1,6 +1,6 @@
 """Block Krylov–Schur eigensolver with thick (implicit) restarts.
 
-TPU-native analogue of Anasazi::BlockKrylovSchur
+JAX analogue of Anasazi::BlockKrylovSchur
 (packages/anasazi/src/AnasaziBlockKrylovSchurSolMgr.hpp,
 AnasaziBlockKrylovSchur.hpp — block Arnoldi expansion + Schur
 decomposition of the projected matrix + implicit restart keeping the

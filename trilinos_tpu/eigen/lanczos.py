@@ -1,6 +1,6 @@
 """Lanczos / block-Krylov-Schur-lite eigensolvers.
 
-TPU-native coverage of Anasazi's Krylov eigensolvers
+JAX coverage of Anasazi's Krylov eigensolvers
 (packages/anasazi/src/AnasaziBlockKrylovSchurSolMgr.hpp — Arnoldi/Lanczos
 factorization + Schur/eig of the projected matrix). Round-1 scope: a
 fixed-length Lanczos (symmetric) and Arnoldi (general) factorization with

@@ -1,10 +1,10 @@
 """LOBPCG — locally optimal block preconditioned conjugate gradients.
 
-TPU-native analogue of Anasazi::LOBPCG
+JAX analogue of Anasazi::LOBPCG
 (packages/anasazi/src/AnasaziLOBPCGSolMgr.hpp, AnasaziLOBPCG.hpp). The
-method is the most TPU-friendly eigensolver in the reference's set: each
+method is the most accelerator-friendly eigensolver in the reference's set: each
 iteration is one block SpMM + small (3·nb)² Rayleigh-Ritz eigenproblem —
-MXU GEMMs plus one psum, no sequential recurrences.
+GEMMs plus one psum, no sequential recurrences.
 
 Basis conditioning is handled the way the reference's SVQB ortho manager
 does (packages/anasazi/src/AnasaziSVQBOrthoManager.hpp) but via CholQR2

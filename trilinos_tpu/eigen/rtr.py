@@ -1,6 +1,6 @@
 """RTR — Riemannian Trust-Region eigensolver (symmetric, smallest).
 
-TPU-native analogue of Anasazi::RTRSolMgr / IRTR
+JAX analogue of Anasazi::RTRSolMgr / IRTR
 (packages/anasazi/src/AnasaziRTRSolMgr.hpp, AnasaziRTRBase.hpp,
 AnasaziIRTR.hpp): minimize f(X) = trace(XᵀAX) over the (generalized)
 Grassmann manifold {X : XᵀMX = I} with a trust-region outer iteration

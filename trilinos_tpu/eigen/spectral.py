@@ -5,9 +5,9 @@ solver a spectrally transformed operator — classically
 (A - sigma I)^-1 backed by an Amesos2 direct factorization (the
 "shift-and-invert" mode of AnasaziBlockKrylovSchur examples).
 
-TPU-native form: the inverse apply is an INNER Krylov solve per outer
+JAX-native form: the inverse apply is an INNER Krylov solve per outer
 operator application (matrix-free — a sparse factorization has no
-efficient TPU apply, see SURVEY hard-part #4), so the whole transformed
+efficient accelerator apply, see SURVEY hard-part #4), so the whole transformed
 eigensolve stays jittable. (A - sigma I) is symmetric indefinite for
 interior shifts, so MINRES is the default inner solver. Eigenvalues of
 the transformed operator are theta = 1/(lambda - sigma); ``eigs_near``

@@ -1,6 +1,6 @@
 """TraceMin eigensolver (symmetric, smallest eigenpairs).
 
-TPU-native analogue of Anasazi::TraceMin
+JAX analogue of Anasazi::TraceMin
 (packages/anasazi/src/AnasaziTraceMinSolMgr.hpp, AnasaziTraceMinBase.hpp):
 minimize trace(Y' A Y) over Y'Y = I by alternating
   1. an (inexact) block linear solve A Z = Y — here a fixed-iteration

@@ -7,7 +7,7 @@ ref↔phys maps, HGRAD transforms); packages/shards/src/Shards_CellTopology
 .hpp (topology descriptions); packages/pamgen (inline structured mesh
 generation). Assembly feeds the existing ``ops.fe`` Export-sum.
 
-TPU-first structure: bases are closed-form numpy tables evaluated ONCE at
+Accelerator-first structure: bases are closed-form numpy tables evaluated ONCE at
 the cubature points of a reference cell; per-element work (Jacobians,
 transforms, local stiffness) is one batched einsum over all elements —
 there is no per-element loop anywhere, so the whole assembly pipeline is

@@ -10,7 +10,7 @@ saddle-point system or the condensed positive-definite system). Dual
 MOERTEL's ``lmshape_lineardual`` — which make D diagonal so the slave
 side condenses by a diagonal solve.
 
-TPU-first form: interfaces here are 1-D polylines between 2-D meshes
+Accelerator-first form: interfaces here are 1-D polylines between 2-D meshes
 (the P1 trace case). The overlap segmentation (merge both grids'
 breakpoints), 2-point Gauss integration, and hat/dual-shape evaluation
 are fully vectorized host numpy — the output is small dense D, M and

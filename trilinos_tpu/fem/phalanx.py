@@ -9,7 +9,7 @@ Phalanx_DAG_Manager.hpp:89), AliasField (Phalanx_Evaluator_AliasField
 batches of basis/integration data), the gather(dof) -> evaluate closure
 models -> scatter(residual) assembly pipeline.
 
-TPU-first design: the reference evaluates the DAG node-by-node per
+Accelerator-first design: the reference evaluates the DAG node-by-node per
 workset at runtime, with virtual dispatch per evaluator. Here the DAG is
 resolved ONCE on host (topological sort with cycle/missing-provider
 diagnostics) into a plain ordered list of pure functions; ``compile``

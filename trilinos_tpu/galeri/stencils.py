@@ -6,7 +6,7 @@ stencil headers packages/galeri/src-epetra/CrsMatrices/Galeri_Cross2D.h:77-95,
 Galeri_Star2D.h, Galeri_Cross3D.h, Galeri_Recirc2D.h; Xpetra-side Brick3D in
 packages/galeri/src-xpetra/Galeri_StencilProblems.hpp).
 
-TPU-first difference: instead of a per-row InsertGlobalValues assembly loop,
+Accelerator-first difference: instead of a per-row InsertGlobalValues assembly loop,
 generators emit the operator in **closed form** — vectorized COO → CsrHost,
 or directly as DiaMatrix (offset/value arrays with boundary masks), which is
 the zero-assembly fast path for large problems.
@@ -126,9 +126,7 @@ def stencil_dia(dims: tuple[int, ...], stencil: Stencil, dtype=np.float64,
         data[i, :n] = by_off[o]
     if identity_pad and 0 in by_off and n_rows_pad > n:
         data[offsets.index(0), n:] = 1.0
-    from ..ops.formats import _pack_dia_data
-
-    return DiaMatrix(data=_pack_dia_data(data), offsets=offsets, n_rows=n,
+    return DiaMatrix(data=jnp.asarray(data), offsets=offsets, n_rows=n,
                      n_cols=n, nnz=nnz)
 
 
@@ -261,9 +259,9 @@ def _emit(dims, st, dtype, fmt):
     if fmt == "dia":
         return stencil_dia(dims, st, dtype)
     if fmt == "stencil":
-        # matrix-free constant-coefficient operator (TPU fast path); only
+        # matrix-free constant-coefficient operator (the stencil fast path); only
         # valid when every coefficient is a constant scalar
-        from ..ops.pallas.stencil_op import StencilOp
+        from ..ops.stencil import StencilOp
 
         if any(callable(c) for _, c in st):
             raise ValueError("fmt='stencil' requires constant coefficients")

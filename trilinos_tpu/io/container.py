@@ -1,6 +1,6 @@
 """Binary multi-object container + binary COO matrix I/O.
 
-TPU-native analogue of the reference's binary persistence layer:
+JAX analogue of the reference's binary persistence layer:
   * EpetraExt's HDF5 container (packages/epetraext/src/inout/
     EpetraExt_HDF5.h — named maps/matrices/multivectors/parameter lists in
     one file) — here a single-file container: an 8-byte magic, a JSON

@@ -1,6 +1,6 @@
 """MatrixMarket I/O.
 
-TPU-native analogue of Tpetra's MatrixMarket reader/writer
+JAX analogue of Tpetra's MatrixMarket reader/writer
 (packages/tpetra/core/inout/MatrixMarket_Tpetra.hpp:165,1642 — rank 0
 parses, broadcasts dimensions, distributes row chunks). Here the host
 reads the file and ``read_sparse_distributed`` hands the result to

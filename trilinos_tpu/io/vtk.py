@@ -2,7 +2,7 @@
 
 Reference role: packages/seacas (Exodus II mesh/results I/O) and the
 STK mesh-I/O layer — the reference writes Exodus (netCDF) files that
-visualization tools read. The portable TPU-framework equivalent is the
+visualization tools read. The portable equivalent is the
 legacy ASCII VTK format (readable by ParaView/VisIt, zero external
 dependencies): one ``UNSTRUCTURED_GRID`` per file with POINT_DATA /
 CELL_DATA scalar and vector fields, plus a minimal reader for

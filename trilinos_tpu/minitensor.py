@@ -8,7 +8,7 @@ MiniTensor_Tensor4.h (4th-order identities, C:E contraction).
 MiniTensor_Solvers.h (small Newton/TR solvers) is covered by the
 framework's ``nonlinear``/``optim`` packages and is not duplicated here.
 
-TPU-first design: the reference's Tensor<T, N> is a single small matrix
+Accelerator-first design: the reference's Tensor<T, N> is a single small matrix
 manipulated in scalar C++ loops at one integration point. Here EVERY
 function is batched over arbitrary leading axes — a (ne, q, d, d) array
 of deformation gradients goes through ``polar_left`` as a handful of
@@ -16,7 +16,7 @@ fused XLA ops over all elements x quadrature points at once — and every
 function is jit/vmap/grad-composable, so constitutive models written
 with this module drop straight into the fem assembly and the autodiff
 Jacobians of ``nonlinear``. Dense contractions pin
-``precision="highest"`` (default bf16 MXU dots lose ~3 digits, which a
+``precision="highest"`` (a TF32 default on the GPU loses ~3 digits, which a
 3x3 inverse amplifies).
 
 Closed-form 2x2/3x3 kernels are used where XLA's batched LAPACK-style

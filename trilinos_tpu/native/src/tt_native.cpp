@@ -2,8 +2,8 @@
 //
 // The reference implements ALL of its host-side runtime in C++ (Tpetra's
 // fillComplete machinery, Ifpack2's factorizations, the MatrixMarket
-// reader in MatrixMarket_Tpetra.hpp). The TPU compute path here is
-// JAX/XLA/Pallas; this translation unit provides the C++ versions of the
+// reader in MatrixMarket_Tpetra.hpp). The device compute path here is
+// JAX/XLA; this translation unit provides the C++ versions of the
 // *setup-time* hot paths, loaded from Python via ctypes:
 //
 //   * tt_read_mm   — MatrixMarket coordinate parser (fast strtod scan;

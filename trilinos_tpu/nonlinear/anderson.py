@@ -1,6 +1,6 @@
 """Anderson acceleration for fixed-point iterations.
 
-TPU-native analogue of NOX::Solver::AndersonAcceleration
+JAX analogue of NOX::Solver::AndersonAcceleration
 (reference: packages/nox/src/NOX_Solver_AndersonAcceleration.H:78-94 —
 first step x1 = x0 + beta*M(x0)F(x0); thereafter the new iterate is the
 least-squares mixing sum_i alpha_i [x_{k-i} + beta M F(x_{k-i})] over a
@@ -15,7 +15,7 @@ least-squares  min ||r_k - dR gamma||  and take
 
 The histories live as (m, n) device arrays; the normal-equations solve
 is an m×m host-side lstsq (m <= 10), so each iteration is one g()
-evaluation plus two small GEMMs — entirely MXU/VPU work at scale.
+evaluation plus two small GEMMs — entirely dense device work at scale.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Shared nonlinear-solver infrastructure.
 
-TPU-native analogue of the NOX abstract layer
+JAX analogue of the NOX abstract layer
 (reference: packages/nox/src/NOX_Solver_Generic.H,
 NOX_Abstract_Group.C — iterate/status protocol over an abstract vector).
 

@@ -5,7 +5,7 @@ stepper: predict -> corrector solve -> adapt step size),
 LOCA_MultiContinuation_ArcLengthGroup.C / ArcLengthConstraint.C (the
 bordered arc-length system).
 
-TPU-native form: the bordered corrector is solved MATRIX-FREE — the
+JAX-native form: the bordered corrector is solved MATRIX-FREE — the
 augmented unknown is u = [x; lam] and the augmented residual
 
     G(u) = [ F(x, lam) ; xi * tx.(x - xp) + (1-xi) * tl (lam - lp) - 0 ]

@@ -1,6 +1,6 @@
 """Dogleg trust-region Newton solver.
 
-TPU-native analogue of NOX::Solver::TrustRegionBased
+JAX analogue of NOX::Solver::TrustRegionBased
 (reference: packages/nox/src/NOX_Solver_TrustRegionBased.C — dogleg
 between the Cauchy (steepest-descent) point and the (inexact) Newton
 step on the merit f = 0.5||F||^2, radius update from the ratio of

@@ -1,6 +1,6 @@
 """Dense vector/multivector kernels (local part).
 
-TPU-native analogue of KokkosBlas1/3 free functions
+JAX analogue of KokkosBlas1/3 free functions
 (reference: packages/kokkos-kernels/src/blas/KokkosBlas1_axpby.hpp,
 KokkosBlas1_dot.hpp, KokkosBlas3_gemm.hpp) plus the Belos MultiVecTraits
 block operations (packages/belos/src/BelosMultiVecTraits.hpp:138-332):
@@ -20,27 +20,18 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Solver-grade GEMM precision. TPU's DEFAULT matmul precision feeds the
-# MXU with f32 inputs TRUNCATED TO bf16 (~4e-3 relative error per
-# contraction) — measured on chip as pencil Rayleigh quotients exceeding
-# λmax by 3e-3 and basis-orthonormality drift at the same scale.
-# Correctness-critical reductions (CG/GMRES dots, CholQR Grams,
-# Rayleigh-Ritz projections) must not run at bf16 precision in an f32
-# solver, so HIGHEST is pinned here.
-# MEASURED COST (v5e, round 5): zero on the headline end-to-end solvers
-# (GMRES(30) 456.6 vs 453.7 iters/s at default; CG unchanged) because
-# their GEMMs sit next to larger work, but ~1.8× on ISOLATED narrow-k
-# fused projection chains (k=8 CGS2 pass: 794 → 438 GB/s; s-step GMRES
-# −7%) — the slowdown is XLA materializing the f32→bf16×3 split operands
-# in HBM, not the extra MXU passes (~16 µs for a 2M×8 Gram).
-# Precision.HIGH recovers only ~9% while losing 20× accuracy (Gram err
-# 1e-5 vs 5e-7), and Pallas kernels with in-VMEM splits only win if the
-# multivectors live in a flat (n·k/128, 128) lane-major layout end-to-end
-# (the (n, k)→flat relayout costs more than the split saves) — both
-# measured and rejected; see docs/PRECISION.md.
-# TT_GEMM_PRECISION=default reverts to the MXU fast path (A/B lever; also
-# disables the hi_precision driver decorator in solvers/base.py);
-# TT_GEMM_PRECISION=high is the measured-but-not-recommended middle.
+# Solver-grade GEMM precision. On the GPU an f32 matmul at DEFAULT
+# precision may run on the tensor cores in TF32 (10-bit mantissa, ~1e-3
+# relative error per contraction). Correctness-critical reductions
+# (CG/GMRES dots, CholQR Grams, Rayleigh-Ritz projections, dense coarse
+# solves) must not run at that precision in an f32 solver, so HIGHEST —
+# full f32 (and full f64 under x64) — is pinned here. The cost on the GPU
+# is the f32 instead of the TF32 tensor-core rate for these products;
+# they are narrow (k ≤ a few dozen columns) and memory-bound, so the
+# cost is expected to be small (not measured yet; docs/PRECISION.md).
+# TT_GEMM_PRECISION=default reverts to the backend default (A/B lever;
+# also disables the hi_precision driver decorator in solvers/base.py);
+# TT_GEMM_PRECISION=high is the middle setting.
 import os as _os
 
 _PRECS = {"default": None, "high": jax.lax.Precision.HIGH,
@@ -79,7 +70,7 @@ def local_norm2_sq(x: jax.Array) -> jax.Array:
 
 def mv_trans_mv(a: jax.Array, b: jax.Array, alpha=1.0) -> jax.Array:
     """C = alpha * aᵀ b for (n, ka), (n, kb) → (ka, kb). The Krylov block
-    inner product: one MXU GEMM locally, one psum globally."""
+    inner product: one GEMM locally, one psum globally."""
     c = jnp.einsum("nk,nm->km", a, b, preferred_element_type=a.dtype,
                    precision=HI)
     return alpha * c

@@ -1,9 +1,10 @@
-"""Compensated (double-single / float-float) reductions for f32 chips.
+"""Compensated (double-single / float-float) reductions for f32 solves.
 
 SURVEY hard part #5: Belos' tolerance machinery assumes f64
 (BelosDGKSOrthoManager.hpp:99-107 — blk_tol/sing_tol are f64-calibrated);
-TPU's native dtype is f32 and f64 is slow emulation. This module supplies
-the TPU answer for the reductions that dominate Krylov rounding error —
+an f32 solve (bf16/f32 storage to halve memory traffic) has no f64
+accumulator. This module supplies f64-grade accuracy for the reductions
+that dominate Krylov rounding error —
 dot products and norms — as error-free-transformation arithmetic:
 
   * ``two_sum``  — Knuth's exact addition: a+b = s + e with e exact;
@@ -11,7 +12,7 @@ dot products and norms — as error-free-transformation arithmetic:
     primitive needed): a·b = p + e exactly;
   * ``comp_sum`` — float-float pairwise tree reduction: log2(n) vectorized
     sweeps combining (hi, lo) partials with renormalization — maps to
-    pure VPU elementwise ops, no sequential scan;
+    pure elementwise ops, no sequential scan;
   * ``comp_dot`` — the Ogita-Rump-Oishi Dot2: two_prod per element, then
     the compensated tree sum of products AND product errors. Result
     accurate to ~eps_f32 (final rounding) instead of the ~log2(n)·eps to
@@ -19,7 +20,7 @@ dot products and norms — as error-free-transformation arithmetic:
     accumulator carried in two f32 words.
 
 Cost: ~10 elementwise flops/element extra — bandwidth-bound dots barely
-notice (<20% wall on chip). Distributed use: psum hi and lo separately
+notice. Distributed use: psum hi and lo separately
 (both are f32 leaves; one fused reduction) then renormalize — see
 ``Comm``-taking helpers at the bottom.
 """

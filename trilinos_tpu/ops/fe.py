@@ -1,15 +1,15 @@
 """Finite-element assembly helpers.
 
-TPU-native analogue of Tpetra's FE assembly variants
+JAX analogue of Tpetra's FE assembly variants
 (packages/tpetra/core/src/Tpetra_FECrsMatrix_decl.hpp:224-230,
 Tpetra_FEMultiVector_decl.hpp — overlapping ownership with beginFill/
 endFill phases that Export-sum shared contributions).
 
-On TPU the whole element loop is one vectorized scatter: element matrices
+On the device the whole element loop is one vectorized scatter: element matrices
 (ne, k, k) with connectivity (ne, k) expand to COO triples and sum —
 ``CsrHost.from_coo``'s ADD combine IS the endFill Export-sum. The
 device-side incremental variant (``fe_apply_local``) assembles matrix-free:
-y = Σ_e P_eᵀ (K_e (P_e x)) as gather → batched matmul (MXU) → scatter-add,
+y = Σ_e P_eᵀ (K_e (P_e x)) as gather → batched matmul → scatter-add,
 useful when the mesh changes every step.
 """
 from __future__ import annotations
@@ -53,7 +53,7 @@ def fe_apply_local(connect: jax.Array, elem_mats: jax.Array,
                    x: jax.Array) -> jax.Array:
     """Matrix-free FE operator apply: y = Σ_e P_eᵀ K_e P_e x.
 
-    Gather dof values per element, batched k×k matmuls (MXU), scatter-add
+    Gather dof values per element, batched k×k matmuls, scatter-add
     back — assembly-free, ideal when K_e changes every step.
     """
     was_1d = x.ndim == 1

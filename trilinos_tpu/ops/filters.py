@@ -1,6 +1,6 @@
 """Matrix filters — views/transforms used to build preconditioners.
 
-TPU-native analogue of Ifpack2's filter family
+JAX analogue of Ifpack2's filter family
 (packages/ifpack2/src/Ifpack2_LocalFilter_decl.hpp — drop off-process
 entries; Ifpack2_DiagonalFilter_decl.hpp, Ifpack2_DropFilter_decl.hpp,
 Ifpack2_SparsityFilter_decl.hpp, Ifpack2_SingletonFilter_decl.hpp,

@@ -1,6 +1,6 @@
 """Local (single-device) sparse-matrix storage.
 
-This is the TPU-first answer to the reference's node-level CSR container
+This is the accelerator-first answer to the reference's node-level CSR container
 (``KokkosSparse::CrsMatrix``, packages/kokkos-kernels/src/sparse/
 KokkosSparse_CrsMatrix.hpp) and BSR container. XLA needs **static shapes**,
 so instead of one dynamic CSR we keep:
@@ -13,9 +13,9 @@ so instead of one dynamic CSR we keep:
     which XLA fuses into a single bandwidth-bound pass.
   * ``DiaMatrix`` — diagonal-offset (stencil) storage: for Galeri-style
     banded operators SpMV becomes a handful of vector shifts — no gather
-    at all, the speed-of-light format on TPU.
+    at all, the speed-of-light format.
   * ``BsrMatrix`` — block-ELL (constant block size): gathered block panels
-    feed batched ``b×b`` matmuls on the MXU. Analogue of
+    feed batched ``b×b`` matmuls. Analogue of
     ``Tpetra::BlockCrsMatrix`` (src/Tpetra_BlockCrsMatrix_decl.hpp:53).
 
 Padding convention (load-bearing, used framework-wide):
@@ -245,16 +245,12 @@ class DiaMatrix:
 
     Out-of-range positions hold zeros, so a cyclic shift (jnp.roll) of x is
     exact. Offsets are static → the SpMV unrolls to ``len(offsets)`` fused
-    multiply-adds over shifted vectors: zero gathers, pure VPU.
+    multiply-adds over shifted vectors: zero gathers.
 
-    Layout: ``data`` is stored 3-D ``(n_diags, n_rows_pad//128, 128)`` when
-    the padded row count is lane-divisible — the layout the Pallas kernel
-    consumes directly (an in-jit reshape of a large 2-D parameter forces a
-    per-call relayout on TPU: measured 1.8× slower) — else 2-D
-    ``(n_diags, n_rows_pad)``. Use ``data_flat`` for the logical 2-D view.
+    Layout: ``data`` is ``(n_diags, n_rows_pad)``.
     """
 
-    data: jax.Array  # (nd, R, 128) when lane-divisible, else (nd, n_pad)
+    data: jax.Array  # (nd, n_pad)
     offsets: tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     n_rows: int = dataclasses.field(metadata=dict(static=True))
     n_cols: int = dataclasses.field(metadata=dict(static=True))
@@ -262,16 +258,7 @@ class DiaMatrix:
 
     @property
     def n_rows_pad(self) -> int:
-        if self.data.ndim == 3:
-            return self.data.shape[1] * self.data.shape[2]
         return self.data.shape[1]
-
-    @property
-    def data_flat(self) -> jax.Array:
-        """Logical (n_diags, n_rows_pad) view (reshape; free on CPU)."""
-        if self.data.ndim == 3:
-            return self.data.reshape(self.data.shape[0], -1)
-        return self.data
 
     @property
     def dtype(self):
@@ -282,21 +269,12 @@ class DiaMatrix:
         return (self.n_rows, self.n_cols)
 
 
-def _pack_dia_data(data_np: np.ndarray) -> jax.Array:
-    """Materialize DIA data in the canonical device layout (3-D when
-    lane-divisible) — done on HOST so no on-device relayout ever runs."""
-    nd, npad = data_np.shape
-    if npad % 128 == 0:
-        return jnp.asarray(data_np.reshape(nd, npad // 128, 128))
-    return jnp.asarray(data_np)
-
-
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BsrMatrix:
     """Block-ELL (constant block size b): ``bcols`` (nbr, kb) indexes block
     columns; ``bvals`` (nbr, kb, b, b) holds dense blocks. SpMM gathers x
-    block panels and runs batched b×b matmuls on the MXU."""
+    block panels and runs batched b×b matmuls."""
 
     bcols: jax.Array  # (n_brows_pad, kb) int32
     bvals: jax.Array  # (n_brows_pad, kb, b, b) dtype
@@ -308,6 +286,10 @@ class BsrMatrix:
     @property
     def n_brows_pad(self) -> int:
         return self.bcols.shape[0]
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.n_brows_pad * self.block_size
 
     @property
     def kb(self) -> int:
@@ -325,34 +307,29 @@ class BsrMatrix:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BdiaMatrix:
-    """Block-diagonal (block-stencil) storage — the TPU-native BSR fast
+    """Block-diagonal (block-stencil) storage — the JAX-native BSR fast
     path for FEM/elasticity operators whose *block* sparsity pattern is a
     stencil (constant block-column offsets, e.g. the 9 node-neighbours of
     a Q1 quad with ``b`` dofs per node).
 
-    Rather than gathering (b, b) blocks and running tiny matmuls (wrong
-    shape for a 128×128 MXU), the scalar vector is de-interleaved into
+    Rather than gathering (b, b) blocks and running tiny matmuls, the
+    scalar vector is de-interleaved into
     ``b`` residue planes ``xp[j, q] = x[q·b + j]`` and the apply becomes
 
         yp[i, q] += data[d, i, j, q] * xp[j, q + offsets[d]]
 
     — ``nd·b²`` shifted elementwise FMAs over dense planes: zero gathers,
-    exact-nnz data traffic, pure VPU, i.e. the DiaMatrix compute shape with
+    exact-nnz data traffic, i.e. the DiaMatrix compute shape with
     a (b × b) plane nest. Analogue of ``Tpetra::BlockCrsMatrix`` applies
     (src/Tpetra_BlockCrsMatrix_decl.hpp:53) and the block spmv of
-    kokkos-kernels (sparse/impl/KokkosSparse_spmv_bsrmatrix_impl.hpp), with
-    the format chosen for the TPU memory system instead of warp shapes.
+    kokkos-kernels (sparse/impl/KokkosSparse_spmv_bsrmatrix_impl.hpp).
 
-    ``data`` is stored 3-D ``(nd·b², NBR//128, 128)`` when the padded
-    block-row count is lane-divisible — plane (d, i, j) at index
-    (d·b + i)·b + j, the SAME rank-3 layout the proven DIA kernel
-    streams (fixed at host pack time, never reshaped in-jit) — else 4-D
-    ``(nd, b, b, NBR)``. ``offsets`` are BLOCK offsets (block col −
-    block row). Out-of-range plane positions hold zeros so cyclic shifts
+    ``data`` is ``(nd, b, b, NBR)``. ``offsets`` are BLOCK offsets
+    (block col − block row). Out-of-range plane positions hold zeros so cyclic shifts
     are exact; padding block rows are identity blocks.
     """
 
-    data: jax.Array  # (nd·b², R, 128) when lane-divisible, else (nd, b, b, NBR)
+    data: jax.Array  # (nd, b, b, NBR)
     offsets: tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     block_size: int = dataclasses.field(metadata=dict(static=True))
     n_rows: int = dataclasses.field(metadata=dict(static=True))
@@ -362,22 +339,11 @@ class BdiaMatrix:
     @property
     def nbr_pad(self) -> int:
         """Padded block-row count."""
-        if self.data.ndim == 3:
-            return self.data.shape[1] * self.data.shape[2]
         return self.data.shape[3]
 
     @property
     def n_rows_pad(self) -> int:
         return self.nbr_pad * self.block_size
-
-    @property
-    def data_flat(self) -> jax.Array:
-        """Logical (nd, b, b, NBR) view (reshape; free on CPU)."""
-        b = self.block_size
-        if self.data.ndim == 3:
-            nd = self.data.shape[0] // (b * b)
-            return self.data.reshape(nd, b, b, -1)
-        return self.data
 
     @property
     def dtype(self):
@@ -457,7 +423,7 @@ def csr_to_dia(a: CsrHost, dtype=None, n_rows_pad: int | None = None,
     if m == n and 0 in off_index:
         # identity padding rows (keeps Jacobi diag invertible on the pad)
         data[off_index[0], m:n_rows_pad] = 1.0
-    return DiaMatrix(data=_pack_dia_data(data), offsets=offsets, n_rows=m,
+    return DiaMatrix(data=jnp.asarray(data), offsets=offsets, n_rows=m,
                      n_cols=n, nnz=a.nnz)
 
 
@@ -576,11 +542,7 @@ def csr_to_bdia(a: CsrHost, block_size: int, dtype=None,
         d0 = off_index[0]
         for i in range(b):
             data[d0, i, i, mb:nbr_pad] = 1.0
-    if nbr_pad % 128 == 0:
-        dev = jnp.asarray(data.reshape(nd * b * b, nbr_pad // 128, 128))
-    else:
-        dev = jnp.asarray(data)
-    return BdiaMatrix(data=dev, offsets=tuple(int(o) for o in uniq),
+    return BdiaMatrix(data=jnp.asarray(data), offsets=tuple(int(o) for o in uniq),
                       block_size=b, n_rows=m, n_cols=n, nnz=a.nnz)
 
 
@@ -589,11 +551,8 @@ def choose_format(a: CsrHost, nrhs: int = 1, block_size: int | None = None,
     """fillComplete-style format selection heuristic.
 
     * explicit ``block_size``: few distinct SCALAR diagonals → DIA
-      (measured fastest for interleaved-vector applies: the de-interleave
-      transpose a BDIA apply needs costs ~8× the kernel on TPU — see
-      ops/pallas/bdia_spmv.py); else few BLOCK offsets and dense fill →
-      BDIA (use ``bdia_plane_solver_op`` to solve in plane layout at the
-      kernel's full rate); else BSR
+      (interleaved-vector applies need no de-interleave transpose);
+      else few BLOCK offsets and dense fill → BDIA; else BSR
     * few distinct diagonals       → DIA (stencil fast path)
     * modest ELL padding blowup    → ELL
     Analogue of the reference's spmv launch-parameter heuristic
@@ -637,7 +596,7 @@ def to_dense(m: SparseMatrix) -> np.ndarray:
         return out
     if isinstance(m, DiaMatrix):
         out = np.zeros((m.n_rows, m.n_cols), dtype=m.dtype)
-        data = np.asarray(m.data_flat)
+        data = np.asarray(m.data)
         for d, off in enumerate(m.offsets):
             for i in range(m.n_rows):
                 j = i + off
@@ -658,7 +617,7 @@ def to_dense(m: SparseMatrix) -> np.ndarray:
     if isinstance(m, BdiaMatrix):
         b = m.block_size
         out = np.zeros((m.n_rows, m.n_cols), dtype=m.dtype)
-        data = np.asarray(m.data_flat)
+        data = np.asarray(m.data)
         for d, off in enumerate(m.offsets):
             for i in range(b):
                 for j in range(b):

@@ -1,13 +1,13 @@
 """Complex linear systems via equivalent real 2x2 forms.
 
-TPU-native analogue of the Komplex package
+JAX analogue of the Komplex package
 (packages/komplex/src/Komplex_LinearProblem.h): a complex system
 (Ar + i·Ai)(xr + i·xi) = (br + i·bi) is solved as the real 2n system
 
     [ Ar  −Ai ] [xr]   [br]
     [ Ai   Ar ] [xi] = [bi]
 
-(the K1 formulation). TPU has no complex-sparse fast path, so this is the
+(the K1 formulation). XLA has no complex-sparse fast path, so this is the
 idiomatic route for complex solves.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Sparse matrix-matrix algebra on host CSR.
 
-TPU-native analogue of TpetraExt's MatrixMatrix module
+JAX analogue of TpetraExt's MatrixMatrix module
 (packages/tpetra/core/ext/TpetraExt_MatrixMatrix_decl.hpp — distributed
 SpGEMM C = A·B, spadd, and the triple product R·A·P of
 TpetraExt_TripleMatrixMultiply_decl.hpp; node-local kernels in

@@ -1,6 +1,6 @@
 """Local SpMV / SpMM dispatch over the device formats.
 
-TPU-native replacement for ``KokkosSparse::spmv``
+JAX replacement for ``KokkosSparse::spmv``
 (reference: packages/kokkos-kernels/src/sparse/KokkosSparse_spmv.hpp:65 and
 impl/KokkosSparse_spmv_impl.hpp). Where the reference picks team/vector
 launch parameters per call, here the *format* was chosen at pack time
@@ -8,16 +8,16 @@ launch parameters per call, here the *format* was chosen at pack time
 
   * ELL — gather rows of x + multiply + row-sum (one bandwidth-bound pass);
   * DIA — unrolled shifted multiply-adds (no gather; stencil fast path);
-  * BSR — gathered block panels through batched MXU matmuls.
+  * BSR — gathered block panels through batched b×b products;
+  * BDIA — block-stencil multiply-adds on residue planes;
+  * StencilOp — matrix-free masked shifted multiply-adds (ops/stencil.py).
 
 All functions accept x of shape (n_pad,) or (n_pad, nrhs) and return y with
 the same leading padding; identity padding rows map zero padding to zero.
-Pallas variants of the hot paths live in ``trilinos_tpu.ops.pallas`` and are
-selected by ``spmv(..., impl=...)``.
+Every path is plain jax.numpy that XLA compiles for the device.
 """
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from .blas import HI
 from .formats import (BdiaMatrix, BsrMatrix, DiaMatrix, EllMatrix,
                       SparseMatrix)
+from .stencil import StencilOp, stencil_spmv_xla
 
 
 def _ensure_2d(x):
@@ -47,8 +48,8 @@ def ell_spmm(a: EllMatrix, x: jax.Array) -> jax.Array:
     x2, was_1d = _ensure_2d(x)
     gathered = x2.at[a.cols].get(mode="promise_in_bounds")
     # precision pinned: this is an OPERATOR apply (ILU factors, AMG
-    # transfers, general ELL matrices) — the default bf16 input
-    # truncation would be a silent ~4e-3 perturbation of A itself
+    # transfers, general ELL matrices) — a reduced-precision default
+    # (TF32 on the GPU) would be a silent perturbation of A itself
     y = jnp.einsum("rk,rkn->rn", a.vals, gathered.astype(a.vals.dtype),
                    precision=HI)
     return _restore(y, was_1d)
@@ -61,7 +62,7 @@ def dia_spmm(a: DiaMatrix, x: jax.Array) -> jax.Array:
     n = a.n_rows_pad
     if x2.shape[0] != n:
         raise ValueError(f"DIA spmv: x length {x2.shape[0]} != padded rows {n}")
-    data = a.data_flat
+    data = a.data
     y = jnp.zeros((n, x2.shape[1]), dtype=jnp.result_type(a.dtype, x2.dtype))
     for d, off in enumerate(a.offsets):
         shifted = jnp.roll(x2, -off, axis=0) if off != 0 else x2
@@ -70,7 +71,7 @@ def dia_spmm(a: DiaMatrix, x: jax.Array) -> jax.Array:
 
 
 def bsr_spmm(a: BsrMatrix, x: jax.Array) -> jax.Array:
-    """Block SpMM: gather x block panels, batched b×b matmul on the MXU."""
+    """Block SpMM: gather x block panels, batched b×b matmul."""
     x2, was_1d = _ensure_2d(x)
     b = a.block_size
     nrhs = x2.shape[1]
@@ -99,21 +100,19 @@ def bdia_spmm(a: BdiaMatrix, x: jax.Array) -> jax.Array:
     yp[i, q] += data[d, i, j, q] * xp[j, q + off_d].
 
     The (i, j) nest is UNROLLED into elementwise FMAs (b ≤ 4 makes the
-    contraction dims tiny): an einsum here lowers to MXU dots at default
-    (bf16) precision on TPU — measured 5e-3 relative error at k=4 —
-    while the unrolled form stays exact f32 on the VPU and fuses.
-    Larger blocks (b > 4, e.g. the k=6 coarse levels of the elasticity
-    AMG) switch to ONE HIGHEST-precision einsum per offset: the nd·b²
-    unroll explodes XLA compile time inside solver loops (measured >10
-    min at b=6, nd=27), and precision=HIGHEST keeps f32 accuracy via
-    the 3-pass MXU decomposition."""
+    contraction dims tiny): plain f32 multiply-adds that XLA fuses into
+    one loop, with no matrix-unit precision question at all. Larger
+    blocks (b > 4, e.g. the k=6 coarse levels of the elasticity AMG)
+    switch to ONE HIGHEST-precision einsum per offset: the nd·b² unroll
+    explodes XLA compile time inside solver loops (b=6, nd=27), and
+    precision=HIGHEST keeps the einsum in full f32 (no TF32)."""
     x2, was_1d = _ensure_2d(x)
     if x2.shape[0] != a.n_rows_pad:
         raise ValueError(
             f"BDIA spmv: x length {x2.shape[0]} != padded rows {a.n_rows_pad}")
     b = a.block_size
     xp = _bdia_planes(a, x2)  # (b, NBR, k)
-    data = a.data_flat  # (nd, b, b, NBR)
+    data = a.data  # (nd, b, b, NBR)
     rt = jnp.result_type(a.dtype, x2.dtype)
     if b > 4:
         acc = jnp.zeros(xp.shape, dtype=rt)
@@ -141,7 +140,7 @@ def bdia_spmm_t(a: BdiaMatrix, x: jax.Array) -> jax.Array:
     x2, was_1d = _ensure_2d(x)
     b = a.block_size
     xp = _bdia_planes(a, x2)
-    data = a.data_flat
+    data = a.data
     rt = jnp.result_type(a.dtype, x2.dtype)
     if b > 4:
         acc = jnp.zeros(xp.shape, dtype=rt)
@@ -181,7 +180,7 @@ def dia_spmm_t(a: DiaMatrix, x: jax.Array) -> jax.Array:
     shifted; yᵀ[j] = sum_d data[d, j - o_d] * x[j - o_d]."""
     x2, was_1d = _ensure_2d(x)
     n = a.n_rows_pad
-    data = a.data_flat
+    data = a.data
     y = jnp.zeros((n, x2.shape[1]), dtype=jnp.result_type(a.dtype, x2.dtype))
     for d, off in enumerate(a.offsets):
         term = data[d][:, None] * x2
@@ -215,44 +214,12 @@ _XLA_TRANS = {EllMatrix: ell_spmm_t, DiaMatrix: dia_spmm_t,
               BsrMatrix: bsr_spmm_t, BdiaMatrix: bdia_spmm_t}
 
 
-def spmv(a: SparseMatrix, x: jax.Array, transpose: bool = False,
-         impl: str = "auto") -> jax.Array:
-    """Local sparse matrix–(multi)vector product.
-
-    ``impl``: 'xla' forces the jnp implementations above; 'pallas' forces
-    the Pallas kernels; 'auto' lets the format pick (Pallas where it wins).
-    """
+def spmv(a: SparseMatrix, x: jax.Array,
+         transpose: bool = False) -> jax.Array:
+    """Local sparse matrix–(multi)vector product."""
     x = jnp.asarray(x)
-    from .pallas.stencil_op import StencilOp, stencil_spmv_xla
-
     if isinstance(a, StencilOp):
-        if transpose:
-            a = StencilOp(dims=a.dims,
-                          offsets=tuple(tuple(-d for d in o)
-                                        for o in a.offsets),
-                          coeffs=a.coeffs, n_rows_pad=a.n_rows_pad,
-                          dtype=a.dtype)
-        from . import pallas as pk
-
-        if impl != "xla" and pk._on_tpu():
-            from .pallas.stencil_op import (stencil_pallas_applicable,
-                                            stencil_spmm_applicable,
-                                            stencil_spmm_pallas,
-                                            stencil_spmv_vmappable)
-
-            if x.ndim == 1 and stencil_pallas_applicable(a, x.ndim):
-                return stencil_spmv_vmappable(a, x)
-            if x.ndim == 2 and stencil_spmm_applicable(a, x.shape[1]):
-                return stencil_spmm_pallas(a, x)
-        return stencil_spmv_xla(a, x)
-    if impl in ("auto", "pallas"):
-        from . import pallas as pk
-
-        fn = pk.maybe_pallas(a, transpose, force=(impl == "pallas"),
-                             x_ndim=x.ndim,
-                             nrhs=x.shape[1] if x.ndim == 2 else 1)
-        if fn is not None:
-            return fn(a, x)
+        return stencil_spmv_xla(a.transposed() if transpose else a, x)
     table = _XLA_TRANS if transpose else _XLA_FWD
     return table[type(a)](a, x)
 
@@ -260,9 +227,8 @@ def spmv(a: SparseMatrix, x: jax.Array, transpose: bool = False,
 spmm = spmv  # multivector RHS is handled uniformly
 
 
-def residual(a: SparseMatrix, x: jax.Array, b: jax.Array,
-             impl: str = "auto") -> jax.Array:
+def residual(a: SparseMatrix, x: jax.Array, b: jax.Array) -> jax.Array:
     """Fused r = b - A x (analogue of Tpetra::Details::localResidual,
     packages/tpetra/core/src/Tpetra_Details_residual.hpp:53). XLA fuses the
     subtraction into the SpMV epilogue."""
-    return b - spmv(a, x, impl=impl)
+    return b - spmv(a, x)

@@ -4,7 +4,7 @@ Reference anchors: packages/rol/src/algorithm/ROL_Algorithm.hpp (the
 run loop: compute step -> update -> status test), ROL_StatusTest.hpp
 (gtol/stol/maxit), ROL_Objective.hpp (value/gradient/hessVec protocol).
 
-TPU-native design, same shape as the ``nonlinear`` package: the outer
+JAX-native design, same shape as the ``nonlinear`` package: the outer
 loop runs on the host (ROL's Algorithm::run is a host loop over
 abstract-vector ops too); value, gradient, Hessian-vector products, and
 inner subproblem solves are jitted device programs cached PER OBJECTIVE

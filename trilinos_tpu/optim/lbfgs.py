@@ -5,7 +5,7 @@ Reference anchors: packages/rol/src/step/ROL_LineSearchStep.hpp
 ROL_lBFGS.hpp (the two-loop recursion over the (s, y) history),
 ROL_Secant.hpp (curvature-pair acceptance), ROL_BackTracking.hpp.
 
-TPU-native form: the history lives as two fixed-shape (m, n) device
+JAX-native form: the history lives as two fixed-shape (m, n) device
 arrays (newest pair LAST) and the entire two-loop recursion is one
 jitted `lax.fori_loop` program with a validity mask over the not-yet-
 filled slots — fixed shapes, no per-iteration retrace, one compile per

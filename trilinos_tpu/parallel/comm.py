@@ -1,11 +1,11 @@
 """Communicator abstraction.
 
-TPU-native analogue of ``Teuchos::Comm``
+JAX analogue of ``Teuchos::Comm``
 (reference: packages/teuchos/comm/src/Teuchos_Comm.hpp:310 — abstract
 reduceAll/broadcast/send-recv over MPI or a serial fake,
 Teuchos_DefaultMpiComm.hpp / Teuchos_DefaultSerialComm.hpp).
 
-On TPU there is no message-passing API to wrap: collectives are *compiled
+Under JAX there is no message-passing API to wrap: collectives are *compiled
 into* the jitted program. So the abstraction is much thinner:
 
   * ``SerialComm``   — single shard; reductions are identity. The analogue
@@ -117,7 +117,7 @@ def norm2(comm: Comm, x: jax.Array) -> jax.Array:
 
 def fused_dots(comm: Comm, pairs) -> jax.Array:
     """Several dot products in ONE reduction: stack local partials, single
-    psum. This is the TPU form of Belos' single-reduce fusions
+    psum. This is the compiled form of Belos' single-reduce fusions
     (packages/belos/src/BelosCGSingleRedIter.hpp:477-483)."""
     from ..ops.blas import local_dot
 

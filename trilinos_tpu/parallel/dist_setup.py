@@ -1,7 +1,7 @@
 """Distributed sparse setup algebra: SpGEMM, transpose, RAP, AMG setup
 over row-sharded blocks — never assembling a global matrix.
 
-TPU-native counterpart of the reference's distributed matrix-matrix layer:
+JAX counterpart of the reference's distributed matrix-matrix layer:
   * ``spgemm_blocks``    ≈ TpetraExt::MatrixMatrix::Multiply
     (packages/tpetra/core/ext/TpetraExt_MatrixMatrix_decl.hpp:1) — import
     the B rows matching A's ghost columns, then a purely local SpGEMM;

@@ -1,6 +1,6 @@
 """Distributed sparse matrices: row-sharded storage + compiled halo exchange.
 
-This module is the TPU-native fusion of the reference's
+This module is the JAX-native fusion of the reference's
 Import/Export + Distributor + CrsMatrix::apply machinery:
 
   * plan construction  ≈ ``Tpetra::Import`` setupSamePermuteRemote/
@@ -157,7 +157,7 @@ def distribute_partitioned(a: CsrHost, n_shards: int, *,
 class DistStencil:
     """Matrix-free distributed stencil operator: z-slab row partition.
 
-    The framework's fastest operator (ops.pallas.StencilOp) as a
+    The framework's fastest operator (ops.stencil.StencilOp) as a
     DistMatrix-class citizen (VERDICT round-1 missing #2): each shard owns
     nz/P whole z-planes; the halo plan ships the neighboring ``depth``
     planes; the local apply runs the single-chip stencil kernel on the
@@ -183,7 +183,7 @@ def distribute_stencil(op, n_shards: int,
     ``depth`` (in z-planes) defaults to the stencil's z-reach; the
     communication-avoiding smoother path passes degree*reach so ONE
     exchange feeds a whole fused polynomial sweep."""
-    from ..ops.pallas.stencil_op import StencilOp
+    from ..ops.stencil import StencilOp
 
     nx, ny, nz = op.dims
     pxy = nx * ny
@@ -684,13 +684,11 @@ def _csr_to_dia_fixed(c: CsrHost, offsets, n_rows_pad, dtype):
     """DIA with a prescribed offset set (union across shards)."""
     d = csr_to_dia(c, dtype=dtype, n_rows_pad=n_rows_pad)
     data = np.zeros((len(offsets), n_rows_pad), dtype=dtype)
-    src = np.asarray(d.data_flat)
+    src = np.asarray(d.data)
     for i, o in enumerate(offsets):
         if o in d.offsets:
             data[i] = src[d.offsets.index(o)]
-    from ..ops.formats import _pack_dia_data
-
-    return DiaMatrix(data=_pack_dia_data(data), offsets=tuple(offsets),
+    return DiaMatrix(data=jnp.asarray(data), offsets=tuple(offsets),
                      n_rows=n_rows_pad, n_cols=n_rows_pad, nnz=0)
 
 

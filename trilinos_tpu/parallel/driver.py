@@ -1,7 +1,7 @@
 """Mesh drivers: shard_map wrappers turning per-shard kernels into global
 jitted programs.
 
-The TPU-native replacement for the reference's solve-side MPI plumbing:
+The JAX replacement for the reference's solve-side MPI plumbing:
 where Trilinos runs one OS process per rank with an MpiComm, here ONE
 program is jitted over a ``jax.sharding.Mesh`` axis ('rows'); per-shard
 code (halo exchange, local SpMV, local dots) runs under ``jax.shard_map``
@@ -337,38 +337,24 @@ class DistPrecond:
 
             return cheb
         if self.kind == "cheb_fused":
-            from ..ops import pallas as pk
-            from ..ops.pallas.stencil_poly import (
-                stencil_poly_applicable, stencil_poly_apply,
-                stencil_poly_xla)
+            from ..ops.stencil import stencil_poly_xla
             from .distmatrix import gather_extended
 
             stages, op_loc, npl, off = self.consts
             axis, p_shards = comm.axis_name, comm.size
             plan = local["plan"]
             sel, valid, zb = local["sel"], local["valid"], local["zb"]
-            # Pallas path only on the chip AND when the shard-local op
-            # admits a kernel plan (small planes / non-f32 fall back to
-            # the masked-roll XLA sweep — same math, one exchange)
-            use_kernel = (pk._on_tpu()
-                          and stencil_poly_applicable(op_loc,
-                                                      len(stages)))
 
             def cheb_fused(r):
-                # ONE depth-s exchange feeds the whole fused sweep (the
-                # communication-avoiding smoother: s-deep ghosts once
+                # ONE depth-s exchange feeds the whole polynomial sweep
+                # (the communication-avoiding smoother: s-deep ghosts once
                 # instead of 1-deep ghosts s times)
                 if r.ndim != 1:
                     raise NotImplementedError(
                         "cheb_fused: single-vector apply only")
                 ext = gather_extended(sel, valid, plan, r, axis,
                                       p_shards)
-                if use_kernel:
-                    y = stencil_poly_apply(op_loc, stages, ext,
-                                           z_bounds=zb)
-                else:
-                    y = stencil_poly_xla(op_loc, stages, ext,
-                                         z_bounds=zb)
+                y = stencil_poly_xla(op_loc, stages, ext, z_bounds=zb)
                 return jax.lax.dynamic_slice(y, (off,), (npl,))
 
             return cheb_fused
@@ -407,13 +393,12 @@ def dist_cheb_fused(op, n_shards: int, degree: int = 4,
     """Communication-avoiding fused Chebyshev smoother for a global
     matrix-free StencilOp distributed over z-slabs: ONE depth-
     (degree*reach) ghost exchange feeds the whole degree-d polynomial
-    sweep through the fused Pallas kernel (ops/pallas/stencil_poly.py)
-    — d-1 fewer exchanges per apply AND one HBM pass instead of d.
+    sweep (ops/stencil.py ``stencil_poly_xla``) — d-1 fewer exchanges
+    per apply.
     The per-shard z-bounds keep beyond-global-boundary ghost planes
     masked at every stage while interior shard cuts read real halo
     data (validated against the global fused apply)."""
-    from ..ops.pallas.stencil_op import StencilOp
-    from ..ops.pallas.stencil_poly import stencil_chebyshev_setup
+    from ..ops.stencil import StencilOp, stencil_chebyshev_setup
     from .distmatrix import distribute_stencil, zslab_bounds
 
     if not isinstance(op, StencilOp):
@@ -696,14 +681,14 @@ def dist_amg_structured(op, n_shards: int, *, sweeps: int = 2,
         every shard runs the same exact-classified inner V-cycle
         redundantly — the standard coarse-agglomeration trade (MueLu's
         repartitioning onto fewer ranks, muelu/src/Rebalancing/, taken
-        to its TPU-native limit: zero further collectives).
+        to its limit: zero further collectives).
 
     Comm per V-cycle: 2·sweeps + 3 plane exchanges + 1 all_gather.
     Requires nz divisible by n_shards with nz/n_shards even (when the
     z axis coarsens). The hierarchy itself is the single-chip SaAmg's
-    (same iteration counts as the on-chip preconditioner).
+    (same iteration counts as the single-device preconditioner).
     """
-    from ..ops.pallas.stencil_op import StencilOp
+    from ..ops.stencil import StencilOp
     from ..precond.amg import SaAmg
     from .distmatrix import distribute_stencil
 
@@ -983,11 +968,9 @@ def dist_sstep_gmres(op, b: jax.Array, *, mesh: Mesh, s: int = 4,
     matrix-free StencilOp over z-slabs — the full CA-GMRES kernel
     (Hoemmen/Demmel): the matrix-powers block W = [Aq/σ … A^s q/σ^s] is
     generated from ONE depth-(s·z_reach) halo exchange feeding the
-    all-output fused polynomial kernel (stencil_powers_apply), so a
-    block step costs ONE exchange + 4 reductions (block CGS2 + CholQR2)
-    versus s exchanges + ~3s reductions for standard Arnoldi — and on
-    TPU the s basis vectors additionally cost one HBM read of q instead
-    of 2s vector passes.
+    all-output polynomial apply (stencil_powers_xla), so a block step
+    costs ONE exchange + 4 reductions (block CGS2 + CholQR2) versus s
+    exchanges + ~3s reductions for standard Arnoldi.
 
     The per-shard traced z-bounds keep beyond-global-boundary ghost
     planes masked at EVERY stage while interior shard cuts read real
@@ -995,17 +978,12 @@ def dist_sstep_gmres(op, b: jax.Array, *, mesh: Mesh, s: int = 4,
     anchor: Belos_Tpetra_GmresSstep.hpp:305, whose matrix-powers loop
     pays a full import (exchange) per apply.
 
-    basis='fused' uses the Pallas kernel on TPU (the XLA reference path
-    off-TPU — same math, still one exchange); basis='loop' is the
+    basis='fused' is the one-exchange basis above; basis='loop' is the
     baseline with one exchange per apply.
     """
-    from ..ops import pallas as pk
     from ..ops.matvec import spmv as _spmv
-    from ..ops.pallas.stencil_op import StencilOp
-    from ..ops.pallas.stencil_poly import (monomial_stages,
-                                           stencil_powers_applicable,
-                                           stencil_powers_apply,
-                                           stencil_powers_xla)
+    from ..ops.stencil import (StencilOp, monomial_stages,
+                               stencil_powers_xla)
     from ..solvers.sstep_gmres import (estimate_opnorm,
                                        newton_basis_stages, sstep_gmres)
     from .distmatrix import (distribute_stencil, gather_extended,
@@ -1037,8 +1015,6 @@ def dist_sstep_gmres(op, b: jax.Array, *, mesh: Mesh, s: int = 4,
         stages = monomial_stages(s, sigma)
     off = depth * pxy
     npl = ds.row_map.n_local_pad
-    use_kernel = (pk._on_tpu()
-                  and stencil_powers_applicable(ds.op_local, s))
     vec_spec = P(AXIS)
     scal_spec = P()
 
@@ -1057,12 +1033,8 @@ def dist_sstep_gmres(op, b: jax.Array, *, mesh: Mesh, s: int = 4,
         def powers_fn(q, sig):
             ext = gather_extended(al.sel, al.valid, al.plan, q, AXIS,
                                   n_shards)
-            if use_kernel:
-                u = stencil_powers_apply(al.op_local, stages, ext,
-                                         z_bounds=zbl)
-            else:
-                u = stencil_powers_xla(al.op_local, stages, ext,
-                                       z_bounds=zbl)
+            u = stencil_powers_xla(al.op_local, stages, ext,
+                                   z_bounds=zbl)
             return u[:, off:off + npl].T          # (npl, s)
 
         return sstep_gmres(
@@ -1070,7 +1042,7 @@ def dist_sstep_gmres(op, b: jax.Array, *, mesh: Mesh, s: int = 4,
             max_restarts=max_restarts, rtol=rtol, atol=atol,
             sigma=sigma, comm=comm, shifts=shifts,
             powers_fn=None if basis == "loop" else powers_fn,
-            basis_impl="loop", basis_dtype=basis_dtype)
+            basis_dtype=basis_dtype)
 
     return run(ds, zb, b)
 
@@ -1156,7 +1128,7 @@ def dist_eigsolve(eigsolver: Callable, a: DistMatrix, nev: int, *,
     the reference's Anasazi-over-Tpetra stack (every Anasazi SolMgr is
     MPI-distributed through MultiVecTraits; AnasaziTpetraAdapter.hpp).
 
-    TPU-native form: GLOBAL-VIEW rather than per-shard. Multivectors are
+    JAX-native form: GLOBAL-VIEW rather than per-shard. Multivectors are
     row-sharded global arrays; the operator apply is one jitted shard_map
     program (``global_operator``); every solver-side einsum/norm on those
     arrays is partitioned by GSPMD. This covers both fully-jitted solvers

@@ -1,6 +1,6 @@
 """Row-distribution maps.
 
-TPU-native analogue of ``Tpetra::Map``
+JAX analogue of ``Tpetra::Map``
 (packages/tpetra/core/src/Tpetra_Map_decl.hpp:246 — the distribution of
 global row indices over processes, with GID↔LID translation at :682-:730
 and owner lookup via the Directory). Differences, by design:

@@ -6,7 +6,7 @@ padding = halo widths, periodic flags), Domi_MDVector.hpp (field data
 on an MDMap; ``updateCommPad()`` performs the ghost exchange per axis;
 ``getLowerPad/getUpperPad``), Domi_Slice.hpp.
 
-TPU-first design: an MDMap is a declarative layout — global shape, the
+Accelerator-first design: an MDMap is a declarative layout — global shape, the
 jax mesh axis each array axis is split over (None = local), halo width
 and periodicity per axis. The MDComm is the ``jax.sharding.Mesh``
 itself. ``updateCommPad`` becomes ``halo_pad``: a pure function used

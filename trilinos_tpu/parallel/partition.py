@@ -1,6 +1,6 @@
 """Partitioning, ordering, and coloring (Zoltan2-lite).
 
-TPU-native coverage of the reference's partitioning stack:
+JAX coverage of the reference's partitioning stack:
   * ``partition_rcb``   — recursive coordinate bisection, the core of
     Zoltan's geometric RCB (packages/zoltan/src/rcb/)
   * ``partition_multijagged`` — p-way multisection along each coordinate

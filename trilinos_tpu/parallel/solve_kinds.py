@@ -2,7 +2,7 @@
 
 The reference tests every Belos solver at 1..8 MPI ranks via a per-solver
 CMake matrix (packages/belos/tpetra/test/BlockGmres/CMakeLists.txt:38
-NUM_MPI_PROCS; same pattern for BlockCG/BiCGStab/...). The TPU analogue:
+NUM_MPI_PROCS; same pattern for BlockCG/BiCGStab/...). The JAX analogue:
 ``run_all_solver_kinds(...)`` drives ONE distributed solve per
 implementation kind in ``solvers.factory.ALIASES`` over a real
 ``jax.sharding.Mesh`` — fully-jitted drivers through ``dist_solve``
@@ -54,7 +54,7 @@ def _shard_map_adapters(rtol: float, maxiter: int):
         # sigma must be given: the host-side opnorm estimate cannot run
         # inside shard_map (same rule as driver.dist_sstep_gmres)
         return sstep_gmres(op, b, x0, s=2, t_blocks=2, max_restarts=1,
-                           sigma=4.0, prec=prec, basis_impl="loop",
+                           sigma=4.0, prec=prec,
                            rtol=rtol, comm=comm)
 
     def unblock(fn, **fkw):

@@ -10,7 +10,7 @@ by hand.
 
 Sensitivities are ADJOINT: dg/dp = g_p - lambda^T f_p with
 J^T lambda = g_u, solved matrix-free by GMRES on the vjp operator —
-the TPU-native equivalent of Piro's sensitivity layer
+the JAX-native equivalent of Piro's sensitivity layer
 (Piro_NOXSolver_Def.hpp's adjoint branch).
 """
 

@@ -1,6 +1,6 @@
 """Smoothed-aggregation algebraic multigrid preconditioner.
 
-TPU-native analogue of MueLu's SA-AMG
+JAX analogue of MueLu's SA-AMG
 (packages/muelu/src/MueCentral/MueLu_Hierarchy_decl.hpp:103,238 —
 ``Setup`` builds P/R/Ac per level, ``Iterate`` runs the V-cycle with
 recursive coarse solve, MueLu_Hierarchy_def.hpp:655,1081; aggregation and
@@ -20,7 +20,7 @@ residual restriction, recursive coarse correction, dense coarse solve —
 unrolled over the (static) level list, so the whole preconditioner is one
 fused XLA computation usable inside any Krylov driver.
 
-Structured aggregation (TPU-first fast path, the analogue of MueLu's
+Structured aggregation (accelerator-first fast path, the analogue of MueLu's
 ``aggregation: type = structured`` / region-hierarchy work): when the fine
 operator is a constant-coefficient :class:`StencilOp` on a grid with even
 dims, aggregates are 2×2×2 grid blocks, so
@@ -33,14 +33,13 @@ dims, aggregates are 2×2×2 grid blocks, so
     classified form (precond/structured.py: coefficients depend only on
     per-axis clamped distance to the faces, extracted from one small
     probe PᵀAP and verified on a second), stored as a DIA matrix —
-    gather-free applies on the fast DIA kernel,
+    gather-free DIA applies,
   * setup is all-host and O(probe³) per level, independent of the real
     grid size (ω uses the Gershgorin λmax bound, exact for these
     operators' purposes — no on-device power method).
 
-Measured on-chip (64³ Laplace3D): the unstructured V-cycle spends ~44 ms
-in ELL-gather P/Pᵀ applies + ~16 ms in coarse ELL SpMVs per cycle; the
-structured cycle replaces all of it with reshapes + stencil/DIA kernels.
+The unstructured V-cycle's ELL-gather P/Pᵀ applies and coarse ELL SpMVs
+are replaced by reshapes + stencil/DIA applies.
 """
 from __future__ import annotations
 
@@ -52,6 +51,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..ops.blas import HI
 from ..ops.formats import CsrHost, choose_format, round_up, ROW_ALIGN
 from ..ops.matrix_ops import ptap
 from ..ops.matvec import spmv
@@ -260,7 +260,7 @@ def build_hierarchy_host(a: CsrHost, max_levels: int, coarse_max: int,
                          min_agg: int, damping: float,
                          nullspace: np.ndarray | None = None,
                          n_equations: int = 1):
-    """Host-side SA-AMG setup shared by the on-chip and distributed
+    """Host-side SA-AMG setup shared by the single-device and distributed
     preconditioners: returns ([(A_l, P_l), ...], A_coarsest) — the
     Hierarchy::Setup phase (MueLu_Hierarchy_decl.hpp:103).
 
@@ -312,13 +312,11 @@ def _is_symmetric_stencil(offsets, coeffs, tol=1e-12) -> bool:
         for o, c in table.items())
 
 
-# The obvious 6-D reshape ((cz,2,cy,2,cx,2) + sum/broadcast) is a TPU
-# layout disaster: the trailing (…,2) dims tile-pad (8,128) each → 64x
-# memory expansion (4 GB temps at 256³; measured OOM). Pair sums via
-# even/odd STRIDED SLICES and duplication via lax.pad interior dilation
-# + roll keep every intermediate in the natural (…, lanes) layout and
-# stay exact adjoints of each other. Shared by the single-chip and
-# distributed (per-shard slab) structured transfers.
+# Pair sums via even/odd STRIDED SLICES and duplication via lax.pad
+# interior dilation + roll keep every intermediate in the natural grid
+# layout (no 6-D (…,2) reshapes) and stay exact adjoints of each other.
+# Shared by the single-device and distributed (per-shard slab)
+# structured transfers.
 
 
 def block_pair_sum(r, dims, block):
@@ -440,7 +438,7 @@ class SaAmg(Preconditioner):
 
     def _do_initialize(self) -> None:
         self.params.validate(_SPECS)
-        from ..ops.pallas.stencil_op import StencilOp
+        from ..ops.stencil import StencilOp
 
         agg_t = self.params["aggregation: type"]
         cand = (self.a if isinstance(self.a, StencilOp)
@@ -533,8 +531,8 @@ class SaAmg(Preconditioner):
                     "CHEBYSHEV preconditioner for stored matrices")
             from .chebyshev import fused_stencil_chebyshev
 
-            # degree = sweeps+1 Chebyshev apply at ~one SpMV's traffic
-            # (ops/pallas/stencil_poly.py); an empty hierarchy (problem
+            # degree = sweeps+1 Chebyshev polynomial on the stencil
+            # (ops/stencil.py); an empty hierarchy (problem
             # at or below 'coarse: max size') is just the dense solve
             if self.levels:
                 self.levels[0]["cheb"] = fused_stencil_chebyshev(
@@ -655,7 +653,7 @@ class SaAmg(Preconditioner):
     def _vcycle_impl(self, levels, coarse_inv, k: int,
                      b: jax.Array) -> jax.Array:
         if k == len(levels):
-            return coarse_inv @ b
+            return jnp.matmul(coarse_inv, b, precision=HI)
         lvl = levels[k]
         x = self._presmooth(k, lvl, b)
         # gamma=1: V-cycle; gamma=2: W-cycle (MueLu Hierarchy::Iterate

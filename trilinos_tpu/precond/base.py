@@ -1,6 +1,6 @@
 """Preconditioner lifecycle and factory.
 
-TPU-native analogue of Ifpack2's preconditioner interface
+JAX analogue of Ifpack2's preconditioner interface
 (packages/ifpack2/src/Ifpack2_Preconditioner.hpp:81-107):
 ``initialize()`` does structure-only setup (graphs, colorings, level
 sets — host side), ``compute()`` does numeric setup (factors, inverses,

@@ -1,6 +1,6 @@
 """Blocked operators and 2×2 block preconditioners.
 
-TPU-native analogue of Xpetra's BlockedCrsMatrix
+JAX analogue of Xpetra's BlockedCrsMatrix
 (packages/xpetra/src/BlockedCrsMatrix/ — an operator stored as a grid of
 sub-blocks with a MapExtractor) and of Teko's block preconditioner
 factories (packages/teko/src/Teko_BlockPreconditionerFactory.hpp — block

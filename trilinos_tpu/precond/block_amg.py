@@ -1,4 +1,4 @@
-"""Block-structured null-space AMG: fast elasticity multigrid on TPU.
+"""Block-structured null-space AMG: fast elasticity multigrid on the accelerator.
 
 The null-space-aware SA hierarchy (MueLu TentativePFactory with
 rigid-body modes) with every gather removed — for PDE systems whose
@@ -8,21 +8,21 @@ NODES live on a structured grid (galeri.fem elasticity2d/3d):
     prolongator's per-aggregate QR blocks form ONE batched (n_agg,
     8·b, k) tensor and its apply is 8 strided-slice/interleave passes
     + unrolled (b × k) multiply-adds — zero gathers, exact arithmetic
-    (no bf16 MXU rounding on tiny contractions);
+    (no reduced-precision matmul rounding on tiny contractions);
   * smoothed transfers cost one operator apply each
     (P = (I−ωD⁻¹A)P_t ⇒ Pᵀr = P_tᵀ(r − ωA(D⁻¹r)), A symmetric);
   * every level is EXACT host Galerkin (PᵀAP with the true smoothed P)
     packed as a BDIA block-stencil matrix — the block 27-neighbour
     pattern of a structured node grid keeps block offsets constant, so
-    applies are the gather-free residue-plane kernel
-    (ops/pallas/bdia_spmv.py);
+    applies are the gather-free residue-plane multiply-adds
+    (ops/matvec.py bdia_spmm);
   * coarse levels carry k dofs per aggregate-node (k = null-space
     dimension: 3 in 2-D, 6 in 3-D) and recurse with the coarse null
     space, stopping at a dense pseudo-inverse.
 
 Reference analogue: MueLu SA on elasticity (TentativePFactory +
 AmalgamationFactory + TripleMatrixMultiply), with the hierarchy's data
-layout redesigned for the TPU memory system instead of CRS gathers.
+layout built from shifted dense planes instead of CRS gathers.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..ops.blas import HI
 from ..ops.formats import CsrHost, csr_to_bdia, round_up, ROW_ALIGN
 from ..ops.matrix_ops import ptap
 from ..ops.matvec import spmv
@@ -108,7 +109,7 @@ def _block_ns_transfers(a_dev, dims, block, b: int, k: int, q_dev,
     per aggregate). The tentative apply interleaves per-position block
     products with strided slices / interior-dilation pads; the (b, k)
     contraction is UNROLLED into elementwise multiply-adds (an einsum
-    would lower tiny contractions to bf16-precision MXU dots).
+    would lower tiny contractions to reduced-precision dots).
     """
     nx, ny, nz = dims
     cdims = tuple(d // bb for d, bb in zip(dims, block))
@@ -299,7 +300,7 @@ class BlockStructuredAmg(Preconditioner):
     def _vcycle_impl(self, levels, coarse_inv, k: int,
                      r: jax.Array) -> jax.Array:
         if k == len(levels):
-            return coarse_inv @ r
+            return jnp.matmul(coarse_inv, r, precision=HI)
         lvl = levels[k]
         x = self._smooth(lvl, jnp.zeros_like(r), r)
         for _ in range(self.gamma):

@@ -1,6 +1,6 @@
 """Block relaxation with pluggable containers (Dense / TriDi / Banded).
 
-TPU-native analogue of Ifpack2::BlockRelaxation + the Container family
+JAX analogue of Ifpack2::BlockRelaxation + the Container family
 (packages/ifpack2/src/Ifpack2_BlockRelaxation_decl.hpp,
 Ifpack2_Container_decl.hpp, Ifpack2_TriDiContainer_decl.hpp,
 Ifpack2_BandedContainer_decl.hpp; partition via LinearPartitioner,
@@ -14,7 +14,7 @@ APPROXIMATED by the container's structure —
     container for line smoothing);
   * Banded — in-block entries within ``bandwidth``; factor stored as the
     dense inverse of the banded approximation (the apply is a batched
-    GEMM like Dense — on the MXU that IS the fast path for the small
+    GEMM like Dense — on the accelerator that IS the fast path for the small
     blocks the reference's banded LAPACK solve targets).
 
 Apply = damped block-Jacobi sweeps x += omega * C^-1 (r - A x), one fused

@@ -1,13 +1,13 @@
 """Direct-solver-as-preconditioner (Amesos2Wrapper).
 
-TPU-native analogue of Ifpack2::Details::Amesos2Wrapper
+JAX analogue of Ifpack2::Details::Amesos2Wrapper
 (packages/ifpack2/src/Ifpack2_Details_Amesos2Wrapper_decl.hpp): wraps the
 sparse direct factorization (solvers.direct.SparseLu — native
 Gilbert-Peierls LU) as an Ifpack2-lifecycle preconditioner. The reference
-uses this for exact subdomain/coarse solves; on TPU the jittable apply is
+uses this for exact subdomain/coarse solves; on the device the jittable apply is
 a dense inverse assembled COLUMN-BY-COLUMN from the sparse factors (one
 sparse solve per unit vector at compute() time), so the device apply is
-one MXU matmul — the right trade for the small systems this is for.
+one dense matmul — the right trade for the small systems this is for.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Hiptmair two-space (hybrid) smoother/preconditioner.
 
-TPU-native analogue of Ifpack2::Hiptmair
+JAX analogue of Ifpack2::Hiptmair
 (packages/ifpack2/src/Ifpack2_Hiptmair_decl.hpp): for curl-curl (Maxwell /
 eddy-current) systems A = C'C + sigma*M on EDGE unknowns, point smoothers
 stall on the huge near-null gradient space of C'C. Hiptmair interleaves

@@ -1,6 +1,6 @@
-"""ILU(k) with TPU-friendly iterative triangular solves.
+"""ILU(k) with accelerator-friendly iterative triangular solves.
 
-TPU-native analogue of Ifpack2::RILUK
+JAX analogue of Ifpack2::RILUK
 (packages/ifpack2/src/Ifpack2_RILUK_decl.hpp:243 — initialize builds the
 level-of-fill graph via IlukGraph (Ifpack2_IlukGraph.hpp; here
 ``iluk_pattern``, native C++ tt_iluk), compute does the numeric factor,
@@ -10,7 +10,7 @@ the classical reduction: ILU(0) numerics on the level-k-augmented
 pattern ("fact: iluk level-of-fill", the reference's parameter name).
 
 Hard-part decision (SURVEY.md §7 hard-parts #4): level-scheduled sparse
-tri-solve is a TPU anti-pattern (many tiny sequential levels), so the
+tri-solve is an accelerator anti-pattern (many tiny sequential levels), so the
 apply uses **fixed-sweep Jacobi richardson iterations on the triangular
 factors** — the strategy of the reference's own fine-grained-parallel
 FastILU family (packages/ifpack2/src/Ifpack2_Details_FastILU_Base_decl.hpp,

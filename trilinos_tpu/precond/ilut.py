@@ -1,6 +1,6 @@
 """ILUT — threshold incomplete LU.
 
-TPU-native analogue of Ifpack2::ILUT
+JAX analogue of Ifpack2::ILUT
 (packages/ifpack2/src/Ifpack2_ILUT_decl.hpp:91 — dual-threshold Saad
 ILUT(p, τ): drop entries below τ·‖row‖, keep the p largest per row in
 each factor). Factorization on host (numpy row sweep; the native C++

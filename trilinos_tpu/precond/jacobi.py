@@ -1,6 +1,6 @@
 """Point relaxation (Jacobi family) and block-Jacobi preconditioners.
 
-TPU-native analogue of Ifpack2::Relaxation
+JAX analogue of Ifpack2::Relaxation
 (packages/ifpack2/src/Ifpack2_Relaxation_decl.hpp:92-124 — "relaxation:
 type"/"sweeps"/"damping factor" parameters; ApplyInverseJacobi
 Ifpack2_Relaxation_def.hpp:1390) and of Ifpack2::BlockRelaxation with
@@ -10,12 +10,12 @@ Ifpack2_Container_decl.hpp — dense per-block LAPACK solves).
 Design notes:
   * multi-sweep Jacobi needs the operator; it packs the matrix via
     ``choose_format`` at compute() unless an operator is supplied.
-  * Gauss-Seidel is intentionally NOT point-sequential here: the TPU
+  * Gauss-Seidel is intentionally NOT point-sequential here: the accelerator
     equivalent (multicolor GS over stencil colorings) lands with the
-    coloring module; Jacobi/Chebyshev are the first-class TPU smoothers.
+    coloring module; Jacobi/Chebyshev are the first-class accelerator smoothers.
   * BlockJacobi inverts the dense diagonal blocks on host at compute()
     (the DenseContainer LAPACK step) and applies them as one batched
-    (nb, bs, bs) × (nb, bs, k) matmul on the MXU.
+    (nb, bs, bs) × (nb, bs, k) batched matmul.
 """
 from __future__ import annotations
 

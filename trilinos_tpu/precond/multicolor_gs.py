@@ -1,6 +1,6 @@
 """Multicolor Gauss-Seidel relaxation.
 
-TPU-native analogue of Ifpack2's multithreaded Gauss-Seidel (MTGS/MTSGS —
+JAX analogue of Ifpack2's multithreaded Gauss-Seidel (MTGS/MTSGS —
 Ifpack2_Relaxation_decl.hpp:238, backed by colored KokkosSparse
 gauss_seidel, kokkos-kernels/src/sparse/impl/
 KokkosSparse_gauss_seidel_impl.hpp with KokkosGraph distance-1 coloring).
@@ -10,7 +10,7 @@ graph coloring: rows of one color have no mutual edges, so each color
 updates as a masked Jacobi step using the freshest values of the other
 colors. For stencil matrices the greedy coloring finds the natural 2
 (red-black, 5/7-point) or 4 colors, so one GS sweep = ncolors masked
-SpMV+update passes — fully parallel on the VPU.
+SpMV+update passes — fully parallel elementwise work.
 """
 from __future__ import annotations
 

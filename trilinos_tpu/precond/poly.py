@@ -1,6 +1,6 @@
 """GMRES-polynomial preconditioner.
 
-TPU-native analogue of Belos' Hybrid/Poly GMRES preconditioner
+JAX analogue of Belos' Hybrid/Poly GMRES preconditioner
 (packages/belos/src/BelosGmresPolySolMgr.hpp — builds a GmresPolyOp via
 generateArnoldiPoly; application replayed through the Arnoldi recurrence,
 BelosGmresPolyOp.hpp:198,254,259 ApplyArnoldiPoly).
@@ -117,7 +117,7 @@ def gmres_poly_apply(op, h: np.ndarray, y: np.ndarray, d: int,
 def gmres_poly_op(op, v0: jax.Array, degree: int = 10):
     """One-call operator-based GmresPoly: setup on ``v0`` then return the
     apply closure. Works unchanged on a distributed global-view operator
-    (``parallel.driver.global_operator``) — the TPU-native route to a
+    (``parallel.driver.global_operator``) — the JAX-native route to a
     DISTRIBUTED polynomial preconditioner (the reference applies
     GmresPolyOp to any Tpetra::Operator)."""
     h, y, deg = gmres_poly_setup(op, v0, degree)

@@ -1,12 +1,12 @@
 """Additive Schwarz domain-decomposition preconditioner.
 
-TPU-native analogue of Ifpack2::AdditiveSchwarz
+JAX analogue of Ifpack2::AdditiveSchwarz
 (packages/ifpack2/src/Ifpack2_AdditiveSchwarz_decl.hpp — overlapping
 subdomains built via Import in Ifpack2_OverlappingRowMatrix_decl.hpp,
 an inner solver per subdomain, combine-mode options).
 
-TPU-first shape: subdomains are padded to one uniform size and their
-factorized inverses are applied as ONE batched dense matmul on the MXU
+Accelerator-first shape: subdomains are padded to one uniform size and their
+factorized inverses are applied as ONE batched dense matmul
 (the DenseContainer strategy of BlockRelaxation, scaled up) — instead of
 per-subdomain sparse solves. Overlap is built on host by distance-1 graph
 expansion (`overlap` rounds). Combine modes: 'add' (classic AS) and

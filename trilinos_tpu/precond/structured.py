@@ -20,7 +20,7 @@ L-1..0 from the high face}``. That makes the coarse operator:
 The reference computes the same operator by explicit distributed
 sparse triple products (packages/muelu/src/MueCentral/
 MueLu_Hierarchy_decl.hpp:103; TpetraExt_TripleMatrixMultiply_decl.hpp);
-the classified form is the TPU-native answer: O(probe³) host setup
+the classified form is the JAX-native answer: O(probe³) host setup
 independent of the real grid size, and gather-free device applies.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Two-level overlapping Schwarz with a GDSW-type coarse space.
 
-TPU-native analogue of ShyLU-DD / FROSch
+JAX analogue of ShyLU-DD / FROSch
 (packages/shylu/shylu_dd/frosch/ — `FROSch_TwoLevelPreconditioner`,
 GDSW/RGDSW coarse spaces in FROSch_GDSWCoarseOperator /
 FROSch_RGDSWCoarseOperator; the BDDC sibling lives in
@@ -8,8 +8,8 @@ packages/shylu/shylu_dd/bddc/). One-level overlapping Schwarz is not
 numerically scalable — CG iterations grow with the number of subdomains;
 the coarse level restores nd-independent convergence.
 
-Design (RGDSW "Option 1" coarse space, TPU-first apply):
-  * first level  — the existing batched-RAS AdditiveSchwarz (one MXU
+Design (RGDSW "Option 1" coarse space, accelerator-first apply):
+  * first level  — the existing batched-RAS AdditiveSchwarz (one batched
     batched matmul over padded subdomain inverses);
   * coarse space — one basis function per subdomain: value on the
     interface = inverse multiplicity (partition of unity across the

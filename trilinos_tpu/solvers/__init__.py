@@ -1,5 +1,5 @@
 from .base import Operator, SolveResult, identity_prec
-from .cg import cg, cg_fused, cg_pipeline, cg_single_reduce, stochastic_cg
+from .cg import cg, cg_pipeline, cg_single_reduce, stochastic_cg
 from .gmres import fgmres, gmres
 from .gmres_ca import gmres_pipeline, gmres_single_reduce
 from .block_gmres import block_gmres
@@ -24,7 +24,6 @@ __all__ = [
     "identity_prec",
     "cg",
     "cg_pipeline",
-    "cg_fused",
     "cg_single_reduce",
     "stochastic_cg",
     "gmres",

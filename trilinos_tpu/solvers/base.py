@@ -10,7 +10,7 @@ Belos' MultiVecTraits / OperatorTraits firewall
     ``Comm`` (one psum for the global part).
 
 This keeps every Krylov driver mesh-agnostic: the same code runs serial,
-under shard_map over a TPU mesh axis, or wrapped in pjit.
+under shard_map over a device mesh axis, or wrapped in pjit.
 """
 from __future__ import annotations
 
@@ -45,13 +45,11 @@ class SolveResult:
 
 def hi_precision(fn: Callable) -> Callable:
     """Trace the wrapped driver under ``jax.default_matmul_precision
-    ("highest")``: TPU's DEFAULT matmul precision truncates f32 inputs to
-    bf16 (~4e-3 relative per contraction — see ops/blas.py HI), which
-    poisons Rayleigh-Ritz projections and basis collapses written with
-    plain ``@``. The context applies at TRACE time, so inner ``jax.jit``
-    closures created inside the call inherit it. Measured cost: ~zero on
-    end-to-end solves, up to ~1.8× on isolated narrow-k projection
-    chains (the f32-split operands materialize in HBM — ops/blas.py).
+    ("highest")``: the DEFAULT matmul precision may run f32 products in
+    TF32 on the GPU (~1e-3 relative per contraction — see ops/blas.py
+    HI), which poisons Rayleigh-Ritz projections and basis collapses
+    written with plain ``@``. The context applies at TRACE time, so
+    inner ``jax.jit`` closures created inside the call inherit it.
     TT_GEMM_PRECISION=default disables (the ops/blas.py HI lever)."""
     import functools
 

@@ -1,6 +1,6 @@
 """BiCGStab — stabilized bi-conjugate gradients.
 
-TPU-native analogue of Belos::BiCGStabIter
+JAX analogue of Belos::BiCGStabIter
 (packages/belos/src/BelosBiCGStabIter.hpp). Right-preconditioned form; per
 iteration: 2 operator applies, 2 preconditioner applies, and 3 reduction
 points (rho/convergence fused into one psum; <rhat,v>; <t,s>/<t,t> fused).

@@ -1,6 +1,6 @@
 """True block conjugate gradients (shared Krylov space).
 
-TPU-native analogue of Belos::BlockCGIter behind BlockCGSolMgr
+JAX analogue of Belos::BlockCGIter behind BlockCGSolMgr
 (packages/belos/src/BelosBlockCGIter.hpp, BelosBlockCGSolMgr.hpp): all s
 right-hand sides share ONE block Krylov space, so spectral information
 discovered for any column accelerates every column — unlike the
@@ -34,7 +34,7 @@ from .base import (Operator, SolveResult, certified_solve, hi_precision,
 
 def _block_dot(comm: Comm, u: jax.Array, v: jax.Array) -> jax.Array:
     """(s, s) global block inner product UᵀV — exact f32 accumulation
-    (a default-precision dot would round operands to bf16 on the MXU)."""
+    (a default-precision dot may round operands to TF32 on the GPU)."""
     return comm.psum(jnp.matmul(u.T, v,
                                 precision=lax.Precision.HIGHEST))
 

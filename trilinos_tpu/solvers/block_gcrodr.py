@@ -1,6 +1,6 @@
 """Block GCRO-DR: recycling GMRES for multiple right-hand sides.
 
-TPU-native analogue of Belos::BlockGCRODRSolMgr
+JAX analogue of Belos::BlockGCRODRSolMgr
 (packages/belos/src/BelosBlockGCRODRSolMgr.hpp — block Arnoldi with the
 recycle-space deflation of Parks/de Sturler GCRO-DR; all nrhs columns
 share ONE Krylov space and ONE recycle space U with C = A U, C^T C = I,

@@ -1,12 +1,12 @@
 """Block GMRES: one Krylov space shared by all right-hand sides.
 
-TPU-native analogue of Belos::BlockGmresIter + BlockGmresSolMgr
+JAX analogue of Belos::BlockGmresIter + BlockGmresSolMgr
 (packages/belos/src/BelosBlockGmresIter.hpp:83,659 — block Arnoldi with
 projectAndNormalize; per-step status testing at :676; least-squares update
 ``updateLSQR`` :742; packages/belos/src/BelosBlockGmresSolMgr.hpp:916 —
 restart management; parameter surface :150-158/323-337).
 
-Design for TPU:
+Design for the accelerator:
   * block projection = CGS2/DGKS (two GEMM+psum passes) against the whole
     zero-padded basis; block normalization = CholQR2 — the TSQR-class
     single-reduction panel factorization (SURVEY.md §2.1 TSQR row);

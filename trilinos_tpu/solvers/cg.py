@@ -1,6 +1,6 @@
 """Conjugate-gradient family.
 
-TPU-native Krylov drivers with the capability surface of the reference's
+JAX-native Krylov drivers with the capability surface of the reference's
 CG stack:
   * ``cg``              — preconditioned (pseudo-block) CG, the analogue of
     Belos::PseudoBlockCGIter (packages/belos/src/BelosPseudoBlockCGIter.hpp:411).
@@ -229,66 +229,6 @@ def cg(op: Operator, b: jax.Array, x0: jax.Array | None = None, *,
     x, k, resnorm, conv = certified_solve(
         solve_from, op, b, x, tol, maxiter, comm,
         halt=stop_passed if stop is not None else None)
-    return SolveResult(x=x, iters=k, resnorm=resnorm, converged=conv)
-
-
-def cg_fused(op_stencil, b: jax.Array, x0: jax.Array | None = None, *,
-             rtol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000,
-             interpret: bool = False) -> SolveResult:
-    """Fully-fused CG for matrix-free StencilOps: ONE Pallas launch per
-    iteration (SpMV + dots + all vector updates fused —
-    ops/pallas/cg_fused.py; identity preconditioner, single device,
-    single RHS). Falls back is the caller's job: check
-    ``ops.pallas.cg_fused.cg_fused_applicable(op)`` first.
-
-    The reference's per-kernel CG timer trio (axpby/dot/spmv,
-    tpetra/core/test/PerformanceCGSolve/cg_solve_file.hpp:138-140) is the
-    unfused ladder this collapses.
-
-    STATUS (measured round 4, real v5e chip, 128³ Laplace3D): plain
-    ``cg`` at 16.45k iters/s BEATS this kernel's 13.05k — after the
-    state-as-argument fixes, XLA fuses the plain loop's elementwise ops
-    into the stencil SpMV well enough that the hand-fused iteration's
-    extra Pallas-launch constraints cost more than they save. Kept as a
-    working demonstration of the fused-iteration technique; every
-    flagship path (entry(), bench, factory) uses plain ``cg``.
-    """
-    from ..ops.matvec import spmv
-    from ..ops.pallas.cg_fused import cg_fused_iteration
-
-    comm = SerialComm()
-    x = jnp.zeros_like(b) if x0 is None else x0
-    bb = comm.psum(local_dot(b, b))
-    tol = rhs_norm_scale(jnp.sqrt(bb), rtol, atol)
-
-    def solve_from(x, tol2, k0):
-        r = b - spmv(op_stencil, x)
-        w = spmv(op_stencil, r)
-        rz = local_dot(r, r)
-        delta = local_dot(r, w)
-        scal = jnp.stack([rz, delta, jnp.zeros_like(rz),
-                          jnp.ones_like(rz)]).reshape(1, 4).astype(
-                              jnp.float32)
-        p = jnp.zeros_like(r)  # beta=0 on the first pass -> p0 = r
-        q = jnp.zeros_like(r)
-
-        def cond(s):
-            x, r, w, p, q, scal, k = s
-            return jnp.logical_and(k < maxiter, scal[0, 0] > tol2)
-
-        def body(s):
-            x, r, w, p, q, scal, k = s
-            x, r, w, p, q, scal = cg_fused_iteration(
-                op_stencil, x, r, w, p, q, scal, interpret=interpret)
-            return x, r, w, p, q, scal, k + 1
-
-        x, r, w, p, q, scal, k = lax.while_loop(
-            cond, body, (x, r, w, p, q, scal, k0))
-        return x, k
-
-    x, k, resnorm, conv = certified_solve(
-        solve_from, lambda v: spmv(op_stencil, v), b, x, tol, maxiter,
-        comm)
     return SolveResult(x=x, iters=k, resnorm=resnorm, converged=conv)
 
 

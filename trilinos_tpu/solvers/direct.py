@@ -1,6 +1,6 @@
 """Sparse direct solver with the Amesos2 lifecycle.
 
-TPU-native analogue of Amesos2's adapter layer
+JAX analogue of Amesos2's adapter layer
 (packages/amesos2/src/Amesos2_SolverCore_decl.hpp — the
 preOrdering/symbolicFactorization/numericFactorization/solve lifecycle —
 with the KLU2 default backend, Amesos2_KLU2_decl.hpp).

@@ -1,6 +1,6 @@
 """Solver factory and SolverManager: string + ParameterList driven solves.
 
-TPU-native analogue of ``Belos::SolverFactory``
+JAX analogue of ``Belos::SolverFactory``
 (packages/belos/src/BelosSolverFactory.hpp) with the alias table of
 ``Belos::Details::EBelosSolverType`` (src/Belos_Details_EBelosSolverType.cpp:
 61-122), and of the SolverManager parameter surface
@@ -98,9 +98,9 @@ _SPECS = {
     # StatusTestOutput residual-trace analogue: record per-iteration
     # implicit resnorms into SolveResult.history (CG/GMRES kinds)
     "Record Residual History": Param("Record Residual History", False),
-    # TPU-native extension (no Belos counterpart): store the Krylov
+    # JAX-native extension (no Belos counterpart): store the Krylov
     # basis in bf16 (GMRES / Flexible GMRES / Block GMRES kinds) —
-    # halves basis HBM traffic, 1.5-1.6x per iteration on chip;
+    # halves basis HBM traffic;
     # restarts are true-residual-gated so the certified convergence
     # surface is unchanged
     "Basis Precision": Param("Basis Precision", "default",

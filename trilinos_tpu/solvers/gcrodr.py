@@ -1,6 +1,6 @@
 """GCRO-DR: GMRES with recycling (deflated restarts + cross-solve recycle).
 
-TPU-native analogue of Belos::GCRODRSolMgr
+JAX analogue of Belos::GCRODRSolMgr
 (packages/belos/src/BelosGCRODRSolMgr.hpp — Parks/de Sturler GCRO-DR:
 maintain a recycle space U with C = A U, CᵀC = I; each cycle solves
 exactly in range(U), runs deflated Arnoldi in the complement, and refreshes
@@ -9,7 +9,7 @@ solves — the reference's flagship "sequence of systems" feature).
 
 Structure: the per-cycle work (deflated Arnoldi + LS update) is one jitted
 computation; the small harmonic-Ritz eigenproblem runs on host between
-cycles (it needs a nonsymmetric eig, which TPU/XLA does not provide) —
+cycles (it needs a nonsymmetric eig, which XLA does not provide on the GPU) —
 mirroring the SolMgr/Iteration split of the reference.
 """
 from __future__ import annotations

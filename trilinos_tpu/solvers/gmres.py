@@ -1,7 +1,7 @@
 """GMRES family: restarted GMRES(m), pseudo-block (per-RHS) GMRES, and
 flexible GMRES.
 
-TPU-native counterparts of Belos' GMRES stack:
+JAX counterparts of Belos' GMRES stack:
   * iteration core     — BelosBlockGmresIter.hpp:659-742 (op apply :694,
     projectAndNormalize :717, Givens updateLSQR :742)
   * restart management — BelosBlockGmresSolMgr.hpp:916 solve() loop
@@ -90,21 +90,17 @@ def _gmres_single(op: Operator, b: jax.Array, x0: jax.Array, *,
     static basis prefix holding filled columns (one lax.switch over
     prefix lengths, ortho.project_block_window) — at step j the CGS
     pass touches ceil((j+1)/chunk)·chunk columns instead of all m+1.
-    None (the DEFAULT) = classic full-basis projection: on-chip,
-    conditionals inside the Arnoldi while_loop defeat fusion in EVERY
-    form tried (full 456 iters/s vs switch-prefix 69 vs round-3 chunk
-    loop 38 at restart=30), and the full-basis GEMM already moves basis
-    traffic at the STREAM roofline — s-step CA-GMRES is the real
-    traffic-reduction path. Also used by the vmap'd pseudo-block path,
-    where lax.switch degrades to select."""
+    None (the DEFAULT) = classic full-basis projection, also used by
+    the vmap'd pseudo-block path, where lax.switch degrades to select.
+    The windowed form is not measured on the GPU yet (ROADMAP D3)."""
     m = restart
     n = b.shape[0]
     dtype = b.dtype
-    # inexact-Krylov basis storage (bf16 on TPU): the Arnoldi basis —
+    # inexact-Krylov basis storage (e.g. bf16): the Arnoldi basis —
     # the proven HBM bottleneck of the iteration (see window_chunk
     # note) — is STORED narrow while every working vector, reduction,
-    # and Givens scalar stays in b's dtype. The MXU reads the narrow
-    # basis natively with wide accumulation (ortho.project_block), so
+    # and Givens scalar stays in b's dtype. The projection GEMMs read the
+    # narrow basis with wide accumulation (ortho.project_block), so
     # projection traffic halves. The Arnoldi relation then holds to
     # basis-dtype accuracy: attainable rtol floors near eps(bdt)
     # (~4e-3 bf16) — certified honestly by the explicit residual
@@ -117,10 +113,10 @@ def _gmres_single(op: Operator, b: jax.Array, x0: jax.Array, *,
         # residual/normalization norms driving the Givens recurrence and
         # the convergence decision are accurate to ~eps instead of
         # ~log(n)·eps — the f32-chip answer to Belos' f64 tolerance
-        # machinery (SURVEY hard part #5). Projections stay on the MXU:
-        # on-chip measurement showed Dot2-GEMM projections cost 4.5×
-        # wall (full-basis HBM re-reads per tree sweep) and move the
-        # certified attainable rtol NOT AT ALL — the attainability floor
+        # machinery (SURVEY hard part #5). Projections stay plain GEMMs:
+        # Dot2-GEMM projections re-read the full basis per tree sweep
+        # and do not move the certified attainable rtol — the
+        # attainability floor
         # is the f32 storage of x and the SpMV rounding, which
         # certified_solve's tighten-retry already reaches (see
         # docs/PRECISION.md round-4 measurements).
@@ -344,15 +340,15 @@ def gmres(op: Operator, b: jax.Array, x0: jax.Array | None = None, *,
     ``basis_dtype``: store the Krylov basis in a narrower dtype (e.g.
     ``jnp.bfloat16``) while all working vectors, reductions, and the
     Givens recurrence stay in b's dtype — the inexact-Krylov storage
-    mode for the HBM-bound projection (basis reads halve; the MXU
-    consumes bf16 natively with wide accumulation). Each cycle's
+    mode for the HBM-bound projection (basis reads halve; the GEMMs
+    consume bf16 with wide accumulation). Each cycle's
     reachable reduction is limited by eps(basis_dtype), but the restart
     recomputes r = b − Ax in working precision, so the outer loop acts
     as iterative refinement and reaches far tighter tolerances
     (measured: 6e-6 from a bf16 basis on Laplace2D; unattainable
     requests report converged=False via the explicit-residual check).
     Intended for loose/medium-tolerance solves, smoothing, and FGMRES
-    inner solves. Beyond-reference TPU feature: Belos has no
+    inner solves. Beyond-reference feature: Belos has no
     mixed-precision basis storage.
 
     ``history=True``: record the per-iteration implicit residual norms

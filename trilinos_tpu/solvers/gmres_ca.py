@@ -1,6 +1,6 @@
 """Communication-avoiding GMRES variants: single-reduce and pipelined.
 
-TPU-native counterparts of the reference's native Tpetra solvers:
+JAX counterparts of the reference's native Tpetra solvers:
   * ``gmres_single_reduce`` — ONE fused reduction per Arnoldi step: the
     classical-Gram-Schmidt projection coefficients Vᵀw and the norm wᵀw
     ride in a single psum; the normalization constant comes from the

@@ -1,6 +1,6 @@
 """LinearProblem: the (A, X, B, preconditioners) container.
 
-TPU-native analogue of ``Belos::LinearProblem``
+JAX analogue of ``Belos::LinearProblem``
 (packages/belos/src/BelosLinearProblem.hpp:170-492 — holds operator, LHS,
 RHS, left/right preconditioners; ``apply`` composes prec∘op; tracks the
 current residual; ``updateSolution`` at :745).

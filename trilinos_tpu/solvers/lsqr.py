@@ -1,6 +1,6 @@
 """LSQR — least-squares solver via Golub-Kahan bidiagonalization.
 
-TPU-native analogue of Belos::LSQRIter/LSQRSolMgr
+JAX analogue of Belos::LSQRIter/LSQRSolMgr
 (packages/belos/src/BelosLSQRIter.hpp). Needs the transpose apply
 (``op_t``); with our formats that is the scatter-add transpose SpMV.
 Single RHS (the reference's LSQR is single-vector too).

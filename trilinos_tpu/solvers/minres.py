@@ -1,6 +1,6 @@
 """MINRES — minimal residual for symmetric (possibly indefinite) systems.
 
-TPU-native analogue of Belos::MinresIter
+JAX analogue of Belos::MinresIter
 (packages/belos/src/BelosMinresIter.hpp). Lanczos three-term recurrence +
 on-the-fly Givens; per iteration 1 operator apply, 1 preconditioner apply,
 and 1 fused reduction. Preconditioner must be SPD (applied symmetrically

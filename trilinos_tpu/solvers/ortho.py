@@ -1,11 +1,11 @@
 """Orthogonalization managers.
 
-TPU-native counterparts of Belos' ortho managers
+JAX counterparts of Belos' ortho managers
 (packages/belos/src/BelosDGKSOrthoManager.hpp:99-107,644 — classical GS with
 conditional reorthogonalization; BelosICGSOrthoManager.hpp — iterated CGS
 (CGS2); BelosIMGSOrthoManager.hpp — iterated MGS; BelosTsqrOrthoManager.hpp).
 
-On TPU every projection is one MXU GEMM (the MvTransMv block inner product)
+Every projection is one GEMM (the MvTransMv block inner product)
 plus ONE psum over the row-shard axis; normalization of a block uses
 Cholesky-QR (CholQR / CholQR2) — the communication-avoiding panel
 factorization playing the role the reference gives TSQR
@@ -38,7 +38,7 @@ def project_block(comm: Comm, v: jax.Array, w: jax.Array):
     v: (n, m) basis (unfilled columns zero); w: (n, k) block to project.
     v may be stored in a NARROWER dtype than w (bf16 basis, f32 work
     vector — the inexact-Krylov storage mode): the GEMMs then run
-    bf16×f32 on the MXU with accumulation in w's dtype, halving basis
+    bf16×f32 with accumulation in w's dtype, halving basis
     HBM traffic. Returns (w_new, c) in w's dtype."""
     c = comm.psum(jnp.einsum("nm,nk->mk", v, w,
                              preferred_element_type=w.dtype, precision=HI))
@@ -114,9 +114,8 @@ def cholqr(comm: Comm, w: jax.Array, eps: float | None = None):
     scale = jnp.sqrt(jnp.maximum(jnp.diag(g), 1e-300))
     tiny = jnp.asarray(jnp.finfo(w.dtype).tiny, g.dtype)
     floor_val = jnp.maximum(SING_TOL * eps * jnp.max(jnp.abs(g)), tiny)
-    # fused small Cholesky + explicit R⁻¹ in one launch (the jnp/lax
-    # tiny-dense lowerings are ~16-32 dependent kernels; smalldense.py),
-    # and the (n, k) triangular solve becomes ONE streaming MXU GEMM
+    # small Cholesky + explicit R⁻¹ (smalldense.py): the (n, k)
+    # triangular solve becomes ONE streaming GEMM
     l, linv = chol_inv_small(g + floor_val * jnp.eye(k, dtype=g.dtype))
     r = l.T
     q = jnp.einsum("nk,km->nm", w, linv.T,
@@ -183,13 +182,8 @@ def project_block_window(comm: Comm, v: jax.Array, w: jax.Array,
     ``lax.switch`` into select (every branch executes) — use the
     full-basis pass for batched projections.
 
-    On-chip verdict (round 4, GMRES(30) @128³): full-basis 456 iters/s,
-    this switch form 69, the round-3 chunk loop 38 — TPU conditionals
-    inside the Arnoldi while_loop defeat fusion no matter the form, and
-    the full-basis GEMM already runs the basis traffic at the STREAM
-    roofline (~480 GB/s effective of 494 measured). Full-basis is the
-    TPU answer at practical restart sizes; s-step CA-GMRES is the
-    traffic-reduction path that actually pays (solvers/sstep_gmres.py).
+    Opt-in only: nothing selects it by default, and on the GPU it has
+    not been measured against the full-basis GEMM (ROADMAP D3).
 
     Returns (w2, c) with c zero-padded to (mp, k)."""
     n, mp = v.shape

@@ -4,7 +4,7 @@ Reference: packages/pliris/src — Pliris.h (factor/solve of a dense
 double matrix distributed over MPI ranks in a torus-wrap layout,
 partial pivoting; xlu_solve.c drives factor+solve).
 
-TPU-first design decisions:
+Accelerator-first design decisions:
   * **Column-block sharding**, not the reference's torus-wrap: with
     whole columns on one device, partial-pivot row swaps are LOCAL
     memory moves on every device (a row permutation never crosses
@@ -17,7 +17,7 @@ TPU-first design decisions:
     factors its (m x nb) panel with `lax.linalg.lu` (partial
     pivoting), everyone applies the row permutation locally, computes
     its U12 strip by a unit-lower triangular solve, and rank-nb
-    updates its trailing columns on the MXU. Finished columns are
+    updates its trailing columns with dense matmuls. Finished columns are
     protected by a traced column mask (updates are computed
     everywhere for static shapes, then masked).
   * The forward substitution folds into the factor loop (b is
@@ -25,7 +25,7 @@ TPU-first design decisions:
     one extra (nb,k) psum per panel in the backward pass only.
 
 Single-device dense solves go through `dense_solve` (XLA's native LU
-on the MXU); the distributed path exists for matrices that exceed one
+as dense matmuls); the distributed path exists for matrices that exceed one
 chip's HBM or to co-locate a dense coarse solve with already-sharded
 data.
 """

@@ -1,6 +1,6 @@
 """RCG — recycling conjugate gradients (deflated CG for SPD sequences).
 
-TPU-native analogue of Belos::RCGSolMgr/RCGIter
+JAX analogue of Belos::RCGSolMgr/RCGIter
 (packages/belos/src/BelosRCGSolMgr.hpp, BelosRCGIter.hpp): for a sequence
 of SPD systems with the same (or slowly varying) operator, maintain a
 recycle subspace U spanning the lowest modes; each solve starts with the

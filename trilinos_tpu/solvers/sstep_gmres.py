@@ -1,6 +1,6 @@
 """s-step (communication-avoiding) GMRES.
 
-TPU-native analogue of the reference's native Tpetra s-step GMRES
+JAX analogue of the reference's native Tpetra s-step GMRES
 (packages/belos/tpetra/src/solvers/Belos_Tpetra_GmresSstep.hpp:305 —
 matrix-powers blocks orthogonalized en bloc, cutting the number of global
 reductions per basis vector).
@@ -127,17 +127,9 @@ def sstep_gmres(op: Operator, b: jax.Array, x0: jax.Array | None = None, *,
                 rtol: float = 1e-8, atol: float = 0.0, sigma: float | None = None,
                 prec: Operator | None = None,
                 comm: Comm | None = None,
-                basis_impl: str = "auto",
                 powers_fn: Callable | None = None,
                 shifts=None, basis_dtype=None) -> SolveResult:
     """Restarted s-step GMRES: m = s·t_blocks basis vectors per cycle.
-
-    basis_impl: how the matrix-powers block W is generated. 'loop' = s
-    separate operator applies (any operator); 'fused' = the
-    single-HBM-pass Pallas matrix-powers kernel (stencil_powers_apply —
-    requires ``op`` to be an unpreconditioned StencilOp; interpreted
-    off-TPU, for tests); 'auto' = fused when applicable on a TPU
-    backend, else loop.
 
     shifts: optional length-s Newton-basis shifts (use ``ritz_shifts``
     for Leja-ordered Ritz values): w_k = (A - λ_k) w_{k-1}/σ instead of
@@ -147,8 +139,8 @@ def sstep_gmres(op: Operator, b: jax.Array, x0: jax.Array | None = None, *,
     basis-generic: A·[w_0..w_{s-1}] = [w_0..w_s]·B with B read off the
     recurrence coefficients.
 
-    powers_fn: explicit basis generator overriding basis_impl —
-    ``powers_fn(q, sigma) -> (n, s)`` producing the SAME recurrence as
+    powers_fn: explicit basis generator replacing the s operator
+    applies of each block — ``powers_fn(q, sigma) -> (n, s)`` producing the SAME recurrence as
     the loop basis (monomial, or Newton when ``shifts`` is given). The
     distributed CA driver passes the one-exchange halo matrix-powers
     generator here (requires ``sigma`` to be given, since the host-side
@@ -189,34 +181,6 @@ def sstep_gmres(op: Operator, b: jax.Array, x0: jax.Array | None = None, *,
     else:
         stage_coeffs = [(1.0 / sigma, 0.0, 0.0)] * s
 
-    powers_fused = powers_fn
-    if powers_fused is None and basis_impl != "loop" and prec is None:
-        from ..ops import pallas as pk
-        from ..ops.pallas.stencil_op import StencilOp
-        from ..ops.pallas.stencil_poly import (stencil_powers_applicable,
-                                               stencil_powers_apply)
-
-        ok = (isinstance(op, StencilOp) and n == op.n_rows_pad
-              and dtype == jnp.float32
-              and stencil_powers_applicable(op, s))
-        if ok and (basis_impl == "fused" or pk._on_tpu()):
-            interp = not pk._on_tpu()
-            pad = (jnp.arange(n) < op.n_rows) if op.n_rows_pad > op.n_rows \
-                else None
-            stages4 = tuple((a, bt, g, 0.0) for a, bt, g in stage_coeffs)
-
-            def powers_fused(q, sig):
-                u = stencil_powers_apply(op, stages4, q,
-                                         interpret=interp)   # (s, n)
-                if pad is not None:
-                    # loop path zeroes pad rows on the first apply; the
-                    # kernel's identity convention would carry q's pads
-                    u = jnp.where(pad[None, :], u, 0.0)
-                return u.T                                    # (n, s)
-    if basis_impl == "fused" and powers_fused is None:
-        raise ValueError("basis_impl='fused' needs an unpreconditioned "
-                         "f32 StencilOp with a viable kernel plan")
-
     # recurrence coefficients as device constants (loop basis + the
     # basis-change bookkeeping below)
     alphas_c = jnp.asarray([a for a, _, _ in stage_coeffs], dtype)
@@ -243,8 +207,8 @@ def sstep_gmres(op: Operator, b: jax.Array, x0: jax.Array | None = None, *,
 
             # matrix powers W (n, s): w_k = α_k A w_{k-1} + β_k w_{k-1}
             # + γ_k w_{k-2} (monomial: α=1/σ, β=γ=0)
-            if powers_fused is not None:
-                wmat = powers_fused(q, sigma)
+            if powers_fn is not None:
+                wmat = powers_fn(q, sigma)
             else:
                 def pw(i, carry):
                     w_prev, w_prev2, wmat = carry

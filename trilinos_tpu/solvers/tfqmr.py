@@ -1,6 +1,6 @@
 """TFQMR — transpose-free quasi-minimal residual (Freund '93).
 
-TPU-native analogue of Belos::TFQMRIter
+JAX analogue of Belos::TFQMRIter
 (packages/belos/src/BelosTFQMRIter.hpp). Two operator applies per outer
 step (one per inner half-step), no transpose apply needed. The loop
 tests the quasi-residual τ directly (the reference's implicit test);

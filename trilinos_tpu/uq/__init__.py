@@ -8,11 +8,11 @@ QuadOrthogPolyExpansion (PCE arithmetic by quadrature projection), and the
 epetra/ SG operator layer (MatrixFreeOperator, MeanBasedPreconditioner,
 ApproxJacobi/ApproxGaussSeidel, FullyAssembledOperator, KL random fields).
 
-TPU-first design: all setup (recurrence coefficients, Golub–Welsch,
+Accelerator-first design: all setup (recurrence coefficients, Golub–Welsch,
 multi-index enumeration, Cijk products) happens ONCE on the host in numpy;
 the device only ever sees static-shape dense arrays. PCE arithmetic is a
 (P,P,P)×(…,P) einsum and quadrature projection is a pair of (Q,P) GEMMs —
-both MXU work. The stochastic Galerkin apply is K sparse SpMMs over the
+both dense matmul work. The stochastic Galerkin apply is K sparse SpMMs over the
 (n,P) coefficient block plus a (K,P,P) einsum, riding the existing
 multivector SpMM kernels.
 """

@@ -5,7 +5,7 @@ Reference: Stokhos' pseudospectral layer
 run the deterministic model at quadrature points, project the outputs
 onto the PC basis.
 
-TPU mapping: the model runs over the quadrature ensemble via ``jax.vmap``
+Device mapping: the model runs over the quadrature ensemble via ``jax.vmap``
 (the reference's "ensemble propagation" from stokhos/src/sacado — a
 vectorized scalar type; vmap IS that transformation in JAX), then the
 projection is one (Q,P) GEMM.

@@ -6,7 +6,7 @@ both operands at the quadrature points, combine pointwise, project back),
 Stokhos_DivisionExpansionStrategy.hpp (division = linear solve against
 the triple-product operator).
 
-TPU mapping: an expansion is three static dense arrays — the (P,P,P)
+Device mapping: an expansion is three static dense arrays — the (P,P,P)
 triple-product tensor, the (Q,P) quadrature basis table, and the (Q,)
 weights. Multiply is one einsum; every nonlinear op is two GEMMs around
 an elementwise function; division is a (P,P) dense solve. All sizes are

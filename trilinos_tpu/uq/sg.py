@@ -9,9 +9,9 @@ Reference: stokhos/src/epetra —
   Jacobi/Gauss-Seidel sweeps using only the mean-block solve;
 - Stokhos_FullyAssembledOperator.hpp: the explicit Kronecker-sum matrix.
 
-TPU mapping: the PC coefficient field is ONE dense (n_pad, P) block; each
+Device mapping: the PC coefficient field is ONE dense (n_pad, P) block; each
 A_k applies to all P columns at once through the multivector SpMM path
-(MXU), and the stochastic coupling is a (P,P) GEMM against the k-th slice
+and the stochastic coupling is a (P,P) GEMM against the k-th slice
 of the triple-product tensor. The k loop is a static Python loop (K =
 #PCE terms of the operator, typically d+1 for affine coefficients), so
 XLA sees one fused program per apply — no per-block dispatch like the
@@ -97,8 +97,8 @@ class SGOperator:
         """u: (n, P) -> (n, P)."""
         y = self.applies[0](u)  # C[:,:,0] = I for orthonormal bases
         for k in range(1, self.k):
-            # HIGHEST precision: default MXU bf16 dots cost ~3 digits of
-            # attainable residual in f32 solves (measured on chip)
+            # HIGHEST precision: a TF32 default on the GPU costs ~3
+            # digits of attainable residual in f32 solves
             y = y + jnp.matmul(self.applies[k](u), self.ck[k],
                                precision="highest")
         return y

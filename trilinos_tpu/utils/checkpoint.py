@@ -1,7 +1,7 @@
 """Solver-state checkpoint/resume.
 
 The reference has no unified checkpoint system (SURVEY.md §5 — only
-MatrixMarket writers and EpetraExt HDF5 containers). Long TPU solves
+MatrixMarket writers and EpetraExt HDF5 containers). Long device solves
 want one: save any solve-state pytree (x, r, Krylov basis, H, recycle
 space, AMG level arrays) and resume. Plain ``.npz`` with a JSON manifest
 of the tree structure — no orbax dependency, restartable anywhere.

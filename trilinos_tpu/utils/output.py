@@ -3,7 +3,7 @@
 Analogue of ``Belos::OutputManager`` (reference:
 packages/belos/src/BelosOutputManager.hpp — verbosity bitmask ``MsgType``,
 rank-0-only gating) and ``Teuchos::FancyOStream`` rank-aware printing.
-In the TPU build "rank" is ``jax.process_index()``.
+Here "rank" is ``jax.process_index()``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Hierarchical, validated parameter lists.
 
-TPU-native analogue of ``Teuchos::ParameterList``
+JAX analogue of ``Teuchos::ParameterList``
 (reference: packages/teuchos/parameterlist/src/Teuchos_ParameterList.hpp:133).
 Every solver / preconditioner / partitioner in the framework takes one of
 these; each component publishes ``valid_params()`` documenting its own

@@ -1,11 +1,11 @@
 """Scoped timers and profiler regions.
 
-TPU-native analogue of ``Teuchos::TimeMonitor`` / ``StackedTimer``
+JAX analogue of ``Teuchos::TimeMonitor`` / ``StackedTimer``
 (reference: packages/teuchos/comm/src/Teuchos_TimeMonitor.hpp:145,
 Teuchos_StackedTimer.hpp) and of ``Tpetra::Details::ProfilingRegion``
 (packages/tpetra/core/src/Tpetra_Details_Profiling.hpp:100), which pushed
 Kokkos profiling regions; here regions additionally push
-``jax.profiler.TraceAnnotation`` scopes so they show up in TPU traces.
+``jax.profiler.TraceAnnotation`` scopes so they show up in device traces.
 
 Timing JAX correctly requires blocking on async dispatch, so ``Timer``
 optionally calls ``block_until_ready`` on a supplied value.
@@ -88,7 +88,7 @@ GLOBAL_TIMERS = TimerRegistry()
 
 @contextlib.contextmanager
 def profiling_region(name: str):
-    """RAII profiling region: shows up in jax.profiler TPU traces."""
+    """RAII profiling region: shows up in jax.profiler device traces."""
     if TraceAnnotation is not None:
         with TraceAnnotation(name):
             yield
